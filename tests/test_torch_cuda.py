@@ -1,0 +1,183 @@
+"""The CUDA kernels of disco_tpu_torch.overlap.fused_kernel against their
+plain versions, on a CUDA card.  Tolerance: exact — the outputs are
+booleans.
+
+This file imports neither jax nor disco_tpu, so it also runs where only
+PyTorch is installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
+
+Without a card every test skips."""
+import numpy as np
+import pytest
+import torch
+
+from disco_tpu_torch.io.readstore import ReadStore
+from disco_tpu_torch.overlap import fused_kernel as port
+from disco_tpu_torch.overlap.verify import as_words
+
+READ_LEN = 250
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _batch(seed, p, n_reads=300):
+    """Reads of 250 bp (Wp = 17) from a 4 kb genome, and window geometry
+    that covers every bit phase of both offsets, windows ending at the
+    read's last base, n = 0, and pairs compared with themselves (true
+    matches).  Every window lies inside its row, as on the main path: past
+    the row the kernels read zeros and the plain versions' word roll wraps
+    (`test_kernels_read_zeros_past_row_end` covers that).
+    Returns (packed_all, rows1, rows2, geo), int numpy arrays."""
+    rng = np.random.default_rng(seed)
+    genome = "".join(rng.choice(list("ACGT"), 4000))
+    seqs = [genome[s:s + READ_LEN]
+            for s in rng.integers(0, 4000 - READ_LEN, n_reads)]
+    store = ReadStore.from_sequences(seqs)
+    packed_all = np.concatenate([store.packed, store.packed_rc])
+    rows1 = rng.integers(0, len(packed_all), p)
+    rows2 = rng.integers(0, len(packed_all), p)
+    e_o1 = rng.integers(0, READ_LEN, p)
+    e_o2 = rng.integers(0, READ_LEN, p)
+    c_o1 = rng.integers(0, READ_LEN, p)
+    i = np.arange(p)
+    e_o1 = (e_o1 & ~15) | (i & 15)                  # every phase ...
+    e_o2 = (e_o2 & ~15) | ((i >> 4) & 15)           # ... against every phase
+    e_n = READ_LEN - np.maximum(e_o1, e_o2)         # ends at the row end
+    e_n = np.where(i % 3 == 0, np.minimum(rng.integers(0, 40, p), e_n), e_n)
+    c_n = READ_LEN - c_o1
+    c_n[::5] = 0
+    e_n[::7] = 0
+    same = i % 4 == 0                               # true matches
+    rows2 = np.where(same, rows1, rows2)
+    e_o2 = np.where(same, e_o1, e_o2)
+    e_n = np.where(same, READ_LEN - e_o1, e_n)
+    geo = tuple(np.clip(g, 0, None).astype(np.int32)
+                for g in (e_o1, e_o2, e_n, c_o1, c_n))
+    return packed_all, rows1, rows2, geo
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.int32))
+
+
+def _assert_same(want, got):
+    for w, g in zip(want, got):
+        assert g.is_cuda and g.dtype == torch.bool
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2 * 1024, 100_003])
+def test_dual_kernel_matches_plain(cuda_device, p):
+    packed_all, rows1, rows2, geo = _batch(seed=7, p=p)
+    args = (as_words(packed_all[rows1].T), as_words(packed_all[rows2].T),
+            *(_t(g) for g in geo))
+    want = port.fused_compare_dual_plain(*args)
+    before = port.fused_compare_dual.launches
+    got = port.fused_compare_dual(*(x.to(cuda_device) for x in args))
+    torch.cuda.synchronize()
+    assert port.fused_compare_dual.launches == before + 1
+    _assert_same(want, got)
+    if p > 1:
+        assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,wb,order", [(2 * 1024, 17, "sorted"),
+                                        (100_003, 32, "sorted"),
+                                        (3001, 17, "random")])
+def test_dual_fetch_kernel_matches_plain(cuda_device, p, wb, order):
+    packed_all, rows1, rows2, geo = _batch(seed=9, p=p)
+    if order == "sorted":
+        perm = np.argsort(rows1, kind="stable")
+        rows1, rows2 = rows1[perm], rows2[perm]
+        geo = tuple(g[perm] for g in geo)
+    wp = packed_all.shape[1]
+    b = np.zeros((wb, p), np.uint32)
+    b[:wp] = packed_all[rows2].T
+    args = (as_words(packed_all), as_words(b), _t(rows1),
+            *(_t(g) for g in geo))
+    want = port.fused_compare_dual_fetch_plain(*args)
+    before = port.fused_compare_dual_fetch.launches
+    got = port.fused_compare_dual_fetch(*(x.to(cuda_device) for x in args))
+    torch.cuda.synchronize()
+    assert port.fused_compare_dual_fetch.launches == before + 1
+    _assert_same(want, got)
+    assert want[0].any() and want[1].any()
+
+
+def _past_row_geometry(seed, p, wp):
+    """Windows that run into a row's last word and up to one word past it;
+    a quarter of the lanes compare a row with itself (true matches)."""
+    rng = np.random.default_rng(seed)
+    end = 16 * (wp + 1)
+    i = np.arange(p)
+    same = i % 4 == 0
+    e_o1 = rng.integers(16 * (wp - 3), end, p)
+    e_o2 = np.where(same, e_o1, rng.integers(16 * (wp - 3), end, p))
+    e_n = end - np.maximum(e_o1, e_o2)
+    c_o1 = np.where(same, 0, rng.integers(0, end, p))
+    c_n = end - c_o1
+    e_n[::7] = 0
+    c_n[::5] = 0
+    return same, tuple(g.astype(np.int32) for g in (e_o1, e_o2, e_n, c_o1,
+                                                    c_n))
+
+
+@pytest.mark.cuda
+def test_kernels_read_zeros_past_row_end(cuda_device):
+    """A word past the row reads as 0 in both kernels, as in the TPU
+    kernels' zero-filled word roll (disco_tpu fused_kernel._roll_up); K2
+    never reads the next row of its table.  The reference is the plain
+    version on rows padded with two zero words, over which its roll never
+    wraps; on the unpadded rows it wraps, and the batch shows that."""
+    packed_all, rows1, rows2, _ = _batch(seed=11, p=3001)
+    rows1 = np.sort(rows1)
+    rows1[-8:] = len(packed_all) - 1             # the table's last row
+    wp = packed_all.shape[1]
+    same, geo = _past_row_geometry(seed=11, p=len(rows1), wp=wp)
+    rows2 = np.where(same, rows1, rows2)
+    padded = np.zeros((len(packed_all), wp + 2), np.uint32)
+    padded[:, :wp] = packed_all
+    geo = tuple(_t(g) for g in geo)
+    cols = lambda x, r: as_words(x[r].T)                      # noqa: E731
+    want1 = port.fused_compare_dual_plain(cols(padded, rows1),
+                                          cols(padded, rows2), *geo)
+    want2 = port.fused_compare_dual_fetch_plain(
+        as_words(padded), cols(padded, rows2), _t(rows1), *geo)
+    wrapped = port.fused_compare_dual_plain(cols(packed_all, rows1),
+                                            cols(packed_all, rows2), *geo)
+    assert want1[0].any() and want1[1].any()
+    assert any((w != v).any() for w, v in zip(want1, wrapped))
+
+    def dev(x):
+        return x.to(cuda_device)
+
+    got1 = port.fused_compare_dual(dev(cols(packed_all, rows1)),
+                                   dev(cols(packed_all, rows2)),
+                                   *map(dev, geo))
+    got2 = port.fused_compare_dual_fetch(
+        dev(as_words(packed_all)), dev(cols(packed_all, rows2)),
+        dev(_t(rows1)), *map(dev, geo))
+    torch.cuda.synchronize()
+    _assert_same(want1, got1)
+    _assert_same(want2, got2)
+
+
+@pytest.mark.cuda
+def test_kernels_on_empty_batch(cuda_device):
+    packed_all, _, _, _ = _batch(seed=1, p=1)
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    cols = torch.zeros((packed_all.shape[1], 0), dtype=torch.int32,
+                       device=cuda_device)
+    for out in (port.fused_compare_dual(cols, cols, z, z, z, z, z),
+                port.fused_compare_dual_fetch(
+                    as_words(packed_all, cuda_device), cols, z, z, z, z, z,
+                    z)):
+        assert all(o.shape == (0,) and o.is_cuda for o in out)

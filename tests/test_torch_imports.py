@@ -1,0 +1,83 @@
+"""disco_tpu_torch never imports jax: every module of the package, and the
+`buildg` command line, run in a fresh interpreter without pulling it in."""
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "disco_tpu_torch"
+
+
+def _modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        if parts[-1] == "__main__":
+            continue
+        mods.append(".".join(parts))
+    return mods
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "disco_tpu_torch.overlap.fused_kernel" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'disco_tpu.'))\n"
+            "             or m == 'disco_tpu')\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_cli_help_without_jax():
+    code = ("import runpy, sys\n"
+            "sys.argv = ['disco_tpu_torch', 'buildg', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('disco_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert 'jax' not in sys.modules\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "-backend" in res.stdout and "-pe" in res.stdout
+
+
+def test_cli_buildg_runs(tmp_path):
+    """python -m disco_tpu_torch buildg on golden micro, native backend
+    (the device backend is covered by test_torch_buildg.py)."""
+    micro = ROOT / "tests" / "golden" / "micro"
+    res = subprocess.run(
+        [sys.executable, "-m", "disco_tpu_torch", "buildg", "-se",
+         str(micro / "reads.fasta"), "-f", str(tmp_path / "micro"), "-p",
+         str(micro / "buildg.cfg"), "-m", "4", "-backend", "native"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    for suffix in ("_0_parGraph.txt", "_0_containedReads.txt"):
+        assert ((tmp_path / ("micro" + suffix)).read_bytes()
+                == (micro / ("micro" + suffix)).read_bytes())
+
+
+def test_cli_unported_options_raise():
+    code = ("from disco_tpu_torch.cli import main\n"
+            "for extra in (['-n', '2'], ['-rma']):\n"
+            "    try:\n"
+            "        main(['buildg', '-se', 'x.fasta', '-f', 'p'] + extra)\n"
+            "    except NotImplementedError as e:\n"
+            "        assert 'not yet ported' in str(e)\n"
+            "    else:\n"
+            "        raise AssertionError(extra)\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
