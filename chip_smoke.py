@@ -31,7 +31,21 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    relation must equal the device one.  Prints the stage walls, fallback
    chunks and peak device memory;
 6. the device engine with its K1 check (fetch=False), its own count set
-   to 0 before it: the relation must equal the K2 one.
+   to 0 before it: the relation must equal the K2 one;
+7. verify paths, the main path of bench_verify (`python -m
+   disco_tpu_torch.bench_verify`): every candidate pair of the same read
+   set (bench_verify.candidate_batch, MinOverlap 30) and the BFS relabel
+   over all of them, timed on the host.  With the K3, K4, K6 and K7 launch
+   counts set to 0, all seven paths (xla, pallas = K7, fused and fused_t =
+   K3, fused_mxu and fused_mxu2 = K4, fused_mxu3 = K6) verify the whole
+   batch in slices of 2^22 pairs, as made (the reads carry no errors, so
+   every live window matches) and with read2's window moved one base on
+   every other pair (mismatches), and each slice's booleans must equal
+   the plain verify_windows on the same pairs; the counts are read right
+   after and each must be above 0.  Then each kernel against its plain
+   version, timed by CUDA events at P = 2^22 (the median over 5 spread
+   slices), each path's pairs/s, and an edge-case batch (every bit phase,
+   n = 0, P = 1 and 3001, windows past the row, K7's over-long windows).
 
 With --profile, one more device relation runs under cProfile and
 torch.profiler: host functions by cumulative seconds, the device's busy
@@ -41,6 +55,8 @@ device operations by time.
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}."""
 import argparse
+import concurrent.futures
+import dataclasses
 import json
 import logging
 import os
@@ -55,9 +71,19 @@ ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
 CHUNK = 1 << 20          # windows per device step on a card (main path)
 CAND_FACTOR = 4          # cand_cap = 4 * chunk
+VERIFY_SLICE = 1 << 22   # pairs per verify-path call
 K1_REPLACES = "disco_tpu/overlap/fused_kernel.py:120"   # fused_compare_dual
 K2_REPLACES = "disco_tpu/overlap/fused_kernel.py:737"   # fused_compare_dual_mxu
 KERNEL_SOURCE = "disco_tpu_torch/csrc/dual_compare.cu"
+WINDOW_SOURCE = "disco_tpu_torch/csrc/window_compare.cu"
+# the single-check kernels: (id, wrapper name, the TPU kernel it replaces)
+SINGLE_KERNELS = (
+    ("K3", "fused_compare", "disco_tpu/overlap/fused_kernel.py:148"),
+    ("K4", "fused_compare_fetch", "disco_tpu/overlap/fused_kernel.py:362"),
+    ("K6", "verify_windows_fused_mxu_both16",
+     "disco_tpu/overlap/fused_kernel.py:667"),
+    ("K7", "compare_windows", "disco_tpu/overlap/pallas_kernel.py:68"),
+)
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
            "_CheckpointInfo.txt")
 
@@ -176,6 +202,25 @@ def edge_case_inputs(eng, p=3001, seed=0):
             eng.packed_all[r2].T.contiguous(), geo)
 
 
+def past_row_pairs(rng, n_rows, w, p=3001):
+    """Windows that run into the last word of a w-word row and up to one
+    word past it: sorted rows1 (the table's last row among them), rows2 (a
+    quarter of them the row itself: true matches), offsets o1, o2 and
+    lengths n (every seventh 0).  Returns (same, rows1, rows2, o1, o2, n),
+    numpy arrays."""
+    import numpy as np
+    end = 16 * (w + 1)
+    same = np.arange(p) % 4 == 0
+    rows1 = np.sort(rng.integers(0, n_rows, p))
+    rows1[-8:] = n_rows - 1
+    rows2 = np.where(same, rows1, rng.integers(0, n_rows, p))
+    o1 = rng.integers(16 * (w - 3), end, p)
+    o2 = np.where(same, o1, rng.integers(16 * (w - 3), end, p))
+    n = end - np.maximum(o1, o2)
+    n[::7] = 0
+    return same, rows1, rows2, o1, o2, n
+
+
 def past_row_check(eng, errs, p=3001, seed=2):
     """Windows that run into the row's last word and up to one word past
     it: the kernels read a word past the row as 0 (the TPU kernels'
@@ -189,18 +234,9 @@ def past_row_check(eng, errs, p=3001, seed=2):
     rng = np.random.default_rng(seed)
     table = eng.packed_all
     n_rows, wp = table.shape
-    end = 16 * (wp + 1)
-    i = np.arange(p)
-    same = i % 4 == 0
-    rows1 = np.sort(rng.integers(0, n_rows, p))
-    rows1[-8:] = n_rows - 1
-    rows2 = np.where(same, rows1, rng.integers(0, n_rows, p))
-    e_o1 = rng.integers(16 * (wp - 3), end, p)
-    e_o2 = np.where(same, e_o1, rng.integers(16 * (wp - 3), end, p))
-    e_n = end - np.maximum(e_o1, e_o2)
-    c_o1 = np.where(same, 0, rng.integers(0, end, p))
-    c_n = end - c_o1
-    e_n[::7] = 0
+    same, rows1, rows2, e_o1, e_o2, e_n = past_row_pairs(rng, n_rows, wp, p)
+    c_o1 = np.where(same, 0, rng.integers(0, 16 * (wp + 1), p))
+    c_n = 16 * (wp + 1) - c_o1
     c_n[::5] = 0
     geo = tuple(torch.from_numpy(g.astype(np.int32)).to(DEVICE)
                 for g in (e_o1, e_o2, e_n, c_o1, c_n))
@@ -326,6 +362,261 @@ def golden_phase(tmp: pathlib.Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the verify paths of bench_verify
+# ---------------------------------------------------------------------------
+def single_kernels():
+    """id -> wrapper of the four single-check kernels."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.overlap import pallas_kernel as pk
+    return {"K3": fk.fused_compare, "K4": fk.fused_compare_fetch,
+            "K6": fk.verify_windows_fused_mxu_both16,
+            "K7": pk.compare_windows}
+
+
+def kernel_inputs(wls, sl):
+    """Each single-check kernel's wrapper, plain version and arguments at
+    pairs `sl` of its path's workload: K3 on fused's gathered columns, K4
+    on fused_mxu's 32-word table and read2 columns, K6 on fused_mxu3's
+    relabeled table, K7 on pallas's aligned columns with zero phases."""
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.overlap import pallas_kernel as pk
+    from disco_tpu_torch.overlap.verify import align_window
+
+    def geo(wl):
+        return wl.rows1[sl], wl.rows2[sl], wl.o1[sl], wl.o2[sl], wl.n[sl]
+
+    r1, r2, o1, o2, n = geo(wls["fused"])
+    pa = wls["fused"].table
+    cols = (pa[r1.long()].T.contiguous(), pa[r2.long()].T.contiguous())
+    aligned = (align_window(pa[r1.long()], o1).T.contiguous(),
+               align_window(pa[r2.long()], o2).T.contiguous())
+    zero = torch.zeros_like(o1)
+    nw = wls["fused"].n_words
+    return {
+        "K3": (fk.fused_compare, fk.fused_compare_plain,
+               (*cols, o1, o2, n), {}),
+        "K4": (fk.fused_compare_fetch, fk.fused_compare_fetch_plain,
+               (*fk._mxu_tables(wls["fused_mxu"].table, r2), r1, o1, o2, n),
+               {}),
+        "K6": (fk.verify_windows_fused_mxu_both16,
+               fk.verify_windows_fused_mxu_both16_plain,
+               (wls["fused_mxu3"].table, *geo(wls["fused_mxu3"])),
+               {"n_words": nw}),
+        "K7": (pk.compare_windows, pk.compare_windows_plain,
+               (*aligned, zero, zero, n), {}),
+    }
+
+
+def single_edge_cases(pa, errs, seed=3):
+    """Every bit phase of both offsets, n = 0, true matches, P = 1 and
+    3001, over the batch's packed table; windows up to one word past the
+    row (K3, K4, K6 against the plain check over rows padded with two zero
+    words); K7 windows longer than its W compared words."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.overlap import pallas_kernel as pk
+    from disco_tpu_torch.overlap.verify import align_window
+    rng = np.random.default_rng(seed)
+    n_rows, wp = pa.shape
+    lines = {32: torch.from_numpy(fk.pack_lines(pa.cpu().numpy().view(
+        np.uint32))[0].view(np.int32)).to(DEVICE),
+             16: torch.from_numpy(fk.pack_lines16(pa.cpu().numpy().view(
+                 np.uint32))[0].view(np.int32)).to(DEVICE)}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(DEVICE)
+
+    def run(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        check(err == 0, f"{name} disagrees with its plain version on "
+                        f"{int((got != want).sum())} of {len(got)} "
+                        "edge-case pairs")
+        errs[name] = max(errs.get(name, 0), err)
+
+    for p in (1, 3001):
+        i = np.arange(p)
+        rows1 = np.sort(rng.integers(0, n_rows, p))
+        rows2 = np.where(i % 4 == 0, rows1, rng.integers(0, n_rows, p))
+        o1 = rng.integers(0, 16 * (wp - 2), p) & ~15 | (i & 15)
+        o2 = np.where(i % 4 == 0, o1,
+                      rng.integers(0, 16 * (wp - 2), p) & ~15 | (i >> 4) & 15)
+        n = np.minimum(16 * (wp - 1) - np.maximum(o1, o2),
+                       rng.integers(0, 300, p))
+        n[::7] = 0
+        r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
+        cols = [pa[r.long()].T.contiguous() for r in (r1, r2)]
+        run("K3", fk.fused_compare(*cols, *g),
+            fk.fused_compare_plain(*cols, *g))
+        for tables in (lines[32], (lines[32], pa)):
+            run("K4", fk.verify_windows_fused_mxu(tables, r1, r2, *g,
+                                                  n_words=wp - 1),
+                fk.verify_windows_fused_mxu_plain(tables, r1, r2, *g,
+                                                  n_words=wp - 1))
+        run("K6", fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
+                                                     n_words=wp - 1),
+            fk.verify_windows_fused_mxu_both16_plain(lines[16], r1, r2, *g,
+                                                     n_words=wp - 1))
+        word = [align_window(pa[r.long()], t(o & ~15)).T.contiguous()
+                for r, o in ((r1, o1), (r2, o2))]
+        bits = [t((o & 15) << 1) for o in (o1, o2)]
+        n_long = t(rng.integers(0, 16 * (wp + 2), p))
+        for nn in (g[2], n_long):
+            run("K7", pk.compare_windows(*word, *bits, nn),
+                pk.compare_windows_plain(*word, *bits, nn))
+    # past the row: K3 on packed_all, K4 and K6 on their line tables
+    for name, table in (("K3", pa), ("K4", lines[32].view(-1, 32)),
+                        ("K6", lines[16].view(-1, 16))):
+        w = table.shape[1]
+        _, rows1, rows2, o1, o2, n = past_row_pairs(rng, n_rows, w)
+        r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
+        padded = torch.zeros((table.shape[0], w + 2), dtype=torch.int32,
+                             device=DEVICE)
+        padded[:, :w] = table
+        want = fk.window_check_plain(padded[r1.long()], padded[r2.long()],
+                                     *g)
+        check(bool(want.any()), f"{name} past-row batch has no match")
+        if name == "K3":
+            got = fk.fused_compare(table[r1.long()].T.contiguous(),
+                                   table[r2.long()].T.contiguous(), *g)
+        elif name == "K4":
+            got = fk.verify_windows_fused_mxu(lines[32], r1, r2, *g,
+                                              n_words=wp - 1)
+        else:
+            got = fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
+                                                     n_words=wp - 1)
+        run(name, got, want)
+    say("verify: edge-case batches (P = 1 and 3001, every bit phase, n = 0, "
+        "K4 in both table forms, K7 windows longer than its words, windows "
+        "up to one word past the row): K3, K4, K6, K7 == plain")
+
+
+def verify_paths_phase(fasta, min_ovl):
+    """Phase 7.  Returns (times, errs, launches) keyed by kernel id."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch import bench_verify as bv
+    from disco_tpu_torch.overlap.verify import verify_windows
+
+    t0 = time.perf_counter()
+    batch = bv.candidate_batch(fasta, min_overlap=min_ovl)
+    t_batch = time.perf_counter() - t0
+    store, r1 = batch[0], batch[1]
+    n_pairs = len(r1)
+    check(n_pairs > VERIFY_SLICE, f"only {n_pairs} candidate pairs")
+    say(f"verify: candidate batch of {n_pairs} pairs ({store.n_reads} reads, "
+        f"n_words {store.n_words}, {int((batch[5] > 0).sum())} live edge "
+        f"windows) in {t_batch:.2f} s on the host; r1 tile spans "
+        f"{bv.tile_spans(r1)}")
+    wls = {}
+    for path in bv.PATHS:
+        t0 = time.perf_counter()
+        wls[path] = bv.prepare(path, *batch)
+        if path in bv.RELABELED:
+            say(f"verify: {path}: BFS relabel over all {n_pairs} pairs and "
+                f"pack_lines16 in {time.perf_counter() - t0:.2f} s on the "
+                f"host; relabeled r1 tile spans {bv.tile_spans(wls[path].rows1)},"
+                f" r2 {bv.tile_spans(wls[path].rows2)}")
+    slices = [slice(s, min(s + VERIFY_SLICE, n_pairs))
+              for s in range(0, n_pairs, VERIFY_SLICE)]
+
+    # The plain verify_windows over the batch, in its own order: as made,
+    # and with read2's window moved one base on (batch order) odd pairs.
+    # The reads carry no errors, so every live window of the batch matches;
+    # the moved windows give each path mismatches to find.  A moved window
+    # still lies inside its row (o2 + n <= 250 bases of 256 or more).
+    base = wls["xla"].to(DEVICE)
+    odd = torch.arange(n_pairs, dtype=torch.int32, device=DEVICE) % 2
+    want = []
+    for moved in (0, 1):
+        o2 = base.o2 + moved * odd
+        want.append(torch.cat([verify_windows(
+            base.table, base.rows1[sl], base.rows2[sl], base.o1[sl], o2[sl],
+            base.n[sl], n_words=base.n_words) for sl in slices]))
+    torch.cuda.synchronize()
+    live = base.n > 0
+    say(f"verify: plain verify_windows: {int(want[0][live].sum())} of "
+        f"{int(live.sum())} live windows match; {int(want[1][live].sum())} "
+        "with read2's window moved one base on odd pairs")
+    check(not bool(want[1][live].all()), "no moved window mismatches")
+    del base
+
+    kern = single_kernels()
+    for k in kern.values():
+        k.launches = 0
+    on_card = {}
+    for path, wl in wls.items():
+        t0 = time.perf_counter()
+        dwl = wl.to(DEVICE)
+        perm = (None if wl.perm is None
+                else torch.from_numpy(wl.perm).to(DEVICE))
+        shift = odd if perm is None else odd[perm]
+        for moved in (0, 1):
+            mwl = (dataclasses.replace(dwl, o2=dwl.o2 + shift) if moved
+                   else dwl)
+            for sl in slices:
+                got = mwl.verify(sl)
+                ref = (want[moved][sl] if perm is None
+                       else want[moved][perm[sl]])
+                check(got.dtype == torch.bool and got.shape == ref.shape,
+                      f"{path}: output {got.dtype} {tuple(got.shape)}")
+                bad = int((got != ref).sum())
+                check(bad == 0, f"{path}: {bad} of {len(got)} pairs of "
+                                f"slice {sl.start}:{sl.stop} (moved "
+                                f"{moved}) differ from the plain "
+                                "verify_windows")
+        torch.cuda.synchronize()
+        on_card[path] = dwl
+        say(f"verify: {path}: {len(slices)} slices of up to {VERIFY_SLICE} "
+            "pairs, as made and with the moved windows, == plain "
+            f"verify_windows ({time.perf_counter() - t0:.2f} s with the "
+            "upload)")
+    launches = {k: f.launches for k, f in kern.items()}
+    say("verify: launches on the verify paths: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items()))
+    for k, n in launches.items():
+        check(n > 0, f"the verify paths never launched {k}")
+
+    # each kernel against its plain version, and the times, at P = 2^22
+    full = [sl for sl in slices if sl.stop - sl.start == VERIFY_SLICE]
+    picks = [full[int(i)] for i in
+             sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
+    times = {}
+    errs = {}
+    path_ms = {path: [] for path in on_card}
+    for sl in picks:
+        for k, (fn, plain, args, kw) in kernel_inputs(on_card, sl).items():
+            got, ref = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [ref])
+            check(err == 0, f"{k} disagrees with its plain version on "
+                            f"{int((got != ref).sum())} pairs of slice "
+                            f"{sl.start}:{sl.stop}")
+            errs[k] = max(errs.get(k, 0), err)
+            times.setdefault(k, []).append(cuda_ms(lambda: fn(*args, **kw),
+                                                   20))
+            times.setdefault(k + "_plain", []).append(
+                cuda_ms(lambda: plain(*args, **kw), 5))
+        for path, dwl in on_card.items():
+            path_ms[path].append(cuda_ms(lambda: dwl.verify(sl), 10))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for k, name, _ in SINGLE_KERNELS:
+        say(f"verify: {k} {name} {med[k]:.4f} ms, plain "
+            f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
+            f"{len(picks)} slices)")
+    for path, ms in path_ms.items():
+        m = statistics.median(ms)
+        say(f"verify: path {path}: {m:.4f} ms per {VERIFY_SLICE} pairs, "
+            f"{VERIFY_SLICE / (m / 1e3):.4e} pairs/s")
+    single_edge_cases(on_card["fused"].table, errs)
+    del on_card
+    torch.cuda.empty_cache()
+    return med, errs, launches
+
+
+# ---------------------------------------------------------------------------
 # --profile: where one device relation spends its time
 # ---------------------------------------------------------------------------
 def profile_phase(store, table, top=8):
@@ -408,14 +699,21 @@ def main(argv=None) -> int:
     tlog.addHandler(walls)
     tlog.setLevel(logging.INFO)
 
-    # ---- 2. build ------------------------------------------------------
+    # ---- 2. build: one compiler per library, all started together -----
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    fk.load()
-    t1 = time.perf_counter()
-    native.build_all()
-    t2 = time.perf_counter()
-    say(f"build: CUDA kernels (nvcc, sm_90a) {t1 - t0:.2f} s, host libraries "
-        f"(g++) {t2 - t1:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = {name: pool.submit(timed, fn) for name, fn in (
+            ("dual_compare.cu (nvcc, sm_90a)", fk.load),
+            ("window_compare.cu (nvcc, sm_90a)", fk.load_window),
+            ("host libraries (g++)", native.build_all))}
+        done = {name: f.result() for name, f in builds.items()}
+    say(f"build: {time.perf_counter() - t0:.2f} s in all: " + ", ".join(
+        f"{name} {t:.2f} s" for name, t in done.items()))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         tmp = pathlib.Path(tmpdir)
@@ -511,6 +809,13 @@ def main(argv=None) -> int:
             f"{rel_k1.stats['fallback_chunks']} of {rel_k1.stats['chunks']}")
         if args.profile:
             profile_phase(store, table)
+        del store, table, rel_dev, rel_xla, rel_k1
+        torch.cuda.empty_cache()
+
+        # ---- 7. the verify paths of bench_verify ------------------------
+        t0 = time.perf_counter()
+        v_med, v_errs, v_launches = verify_paths_phase(fasta, min_ovl)
+        say(f"verify: phase {time.perf_counter() - t0:.2f} s")
 
     kernels = [
         {"name": "fused_compare_dual", "route": "cuda",
@@ -521,7 +826,12 @@ def main(argv=None) -> int:
          "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
          "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": med["K2"], "plain_ms": med["K2_plain"]},
-    ]
+    ] + [
+        {"name": name, "route": "cuda", "source": WINDOW_SOURCE,
+         "replaces": replaces, "launches": v_launches[k],
+         "max_abs_err": v_errs[k], "ms": v_med[k],
+         "plain_ms": v_med[k + "_plain"]}
+        for k, name, replaces in SINGLE_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

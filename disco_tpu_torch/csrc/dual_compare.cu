@@ -46,53 +46,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "window.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-// Word w of pair p's row held as a column of a (W, P) array.
-struct ColumnRow {
-  const uint32_t* col;  // &x[0 * P + p]
-  int64_t stride;       // P
-  int words;            // W
-  __device__ __forceinline__ uint32_t operator()(int w) const {
-    return static_cast<unsigned>(w) < static_cast<unsigned>(words)
-               ? __ldg(col + static_cast<int64_t>(w) * stride)
-               : 0u;
-  }
-};
-
-// Word w of one row of a row-major (R, Wp) table.
-struct TableRow {
-  const uint32_t* row;
-  int words;            // Wp, or 0 for a row index outside the table
-  __device__ __forceinline__ uint32_t operator()(int w) const {
-    return static_cast<unsigned>(w) < static_cast<unsigned>(words)
-               ? __ldg(row + w)
-               : 0u;
-  }
-};
-
-template <class A, class B>
-__device__ __forceinline__ bool window_equal(const A& a, int o1, const B& b,
-                                             int o2, int n) {
-  if (n <= 0) return true;
-  const int d1 = o1 >> 4, s1 = (o1 & 15) << 1;
-  const int d2 = o2 >> 4, s2 = (o2 & 15) << 1;
-  uint32_t a_cur = a(d1), b_cur = b(d2);
-  for (int wi = 0, rem = n; rem > 0; ++wi, rem -= 16) {
-    const uint32_t a_nxt = a(d1 + wi + 1), b_nxt = b(d2 + wi + 1);
-    // top 32 bits of (cur:nxt) << s; s == 0 gives cur
-    const uint32_t x = __funnelshift_l(a_nxt, a_cur, s1);
-    const uint32_t y = __funnelshift_l(b_nxt, b_cur, s2);
-    const uint32_t mask =
-        rem >= 16 ? 0xFFFFFFFFu : (0xFFFFFFFFu << (2 * (16 - rem)));
-    if ((x ^ y) & mask) return false;
-    a_cur = a_nxt;
-    b_cur = b_nxt;
-  }
-  return true;
-}
+using disco::ColumnRow;
+using disco::blocks_for;
+using disco::kThreads;
+using disco::table_row;
+using disco::window_equal;
 
 __global__ void __launch_bounds__(kThreads)
 dual_compare_kernel(const uint32_t* __restrict__ a,
@@ -125,16 +87,10 @@ dual_compare_fetch_kernel(const uint32_t* __restrict__ table, int64_t n_rows,
                           uint8_t* __restrict__ cont_ok) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (p >= P) return;
-  const int64_t r = rows1[p];
-  const bool in_table = r >= 0 && r < n_rows;
-  const TableRow ra{table + (in_table ? r * wp : 0), in_table ? wp : 0};
+  const auto ra = table_row(table, n_rows, wp, rows1[p]);
   const ColumnRow rb{b + p, P, wb};
   edge_ok[p] = window_equal(ra, e_o1[p], rb, e_o2[p], e_n[p]);
   cont_ok[p] = window_equal(ra, c_o1[p], rb, 0, c_n[p]);
-}
-
-unsigned blocks_for(int64_t P) {
-  return static_cast<unsigned>((P + kThreads - 1) / kThreads);
 }
 
 }  // namespace

@@ -31,6 +31,7 @@ Hit orientation encoding (identical to the reference's):
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..io.readstore import ReadStore
 
@@ -116,6 +117,10 @@ class FingerprintTable:
                    orient=orients[order], typ=typs[order])
 
     def lookup_ranges(self, query_keys: np.ndarray):
-        lo = np.searchsorted(self.keys, query_keys, side="left")
-        hi = np.searchsorted(self.keys, query_keys, side="right")
-        return lo, hi
+        """[lo, hi) of each query key's entries, int64: numpy's searchsorted
+        arrays, computed by torch.searchsorted on all host cores over the
+        keys with their sign bit flipped (signed order = unsigned order)."""
+        keys, q = (torch.from_numpy(np.ascontiguousarray(x, np.uint64).view(
+            np.int64) ^ np.int64(-(1 << 63))) for x in (self.keys, query_keys))
+        return (torch.searchsorted(keys, q).numpy(),
+                torch.searchsorted(keys, q, right=True).numpy())

@@ -10,8 +10,8 @@ ctypes, both built into BUILD_DIR (listed in .gitignore):
   from where they are, so the repository keeps one copy of them.  Nothing
   is written into ``disco_tpu/``.
 
-A library is rebuilt when it is missing or older than its source.  Each
-build writes a private temporary file and renames it into place, so
+A library is rebuilt when it is missing or older than one of its sources
+or of the headers they include (`deps`).  Each build writes a private temporary file and renames it into place, so
 processes that build the same library at once do not see half a file."""
 import ctypes
 import os
@@ -27,13 +27,16 @@ BUILD_DIR = PKG_DIR / "_build"
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 
-def _build(out: pathlib.Path, sources, cmd) -> pathlib.Path:
+def _build(out: pathlib.Path, sources, cmd, deps=()) -> pathlib.Path:
+    """Run `cmd -o out sources` unless `out` is newer than every source and
+    every dep (a header the sources include; not passed to `cmd`)."""
     srcs = [pathlib.Path(s) for s in sources]
-    for s in srcs:
+    inputs = srcs + [pathlib.Path(d) for d in deps]
+    for s in inputs:
         if not s.exists():
             raise FileNotFoundError(f"source {s} not found")
     if out.exists() and all(out.stat().st_mtime >= s.stat().st_mtime
-                            for s in srcs):
+                            for s in inputs):
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -51,11 +54,12 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def load_cuda(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu for sm_90a (once) and load it."""
+def load_cuda(name: str, deps=()) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu for sm_90a (once) and load it.  `deps` names
+    the csrc/ headers it includes: a newer header rebuilds the library."""
     so = _build(BUILD_DIR / f"lib{name}.so", [CSRC / f"{name}.cu"],
                 [nvcc(), CUDA_ARCH, "-std=c++17", "-O3", "-shared",
-                 "-Xcompiler", "-fPIC"])
+                 "-Xcompiler", "-fPIC"], deps=[CSRC / d for d in deps])
     return ctypes.CDLL(str(so))
 
 

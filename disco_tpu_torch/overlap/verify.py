@@ -1,8 +1,10 @@
 """Packed-word window verification on torch tensors (the counterpart of
 disco_tpu/overlap/verify.py).
 
-These are the plain versions both CUDA kernels of
-`overlap/fused_kernel.py` are held against.
+These are the plain versions the CUDA kernels of `overlap/fused_kernel.py`
+and `overlap/pallas_kernel.py` are held against; `verify_windows_pallas`
+puts the compare of pallas_kernel.py (K7) behind the same row-gather and
+align preamble as disco_tpu.
 
 The core check: fwd(read1)[o1 : o1+n] == s2[o2 : o2+n], where s2 is either
 fwd(read2) or rc(read2).  Windows are aligned to word 0, bit 0 (word roll
@@ -41,6 +43,11 @@ def align_window(blk: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
         b += 1
     s = ((o & 15) << 1)[:, None]                 # 2 * (o % 16)
     nxt = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+    return _funnel(x, nxt, s)
+
+
+def _funnel(x: torch.Tensor, nxt: torch.Tensor, s) -> torch.Tensor:
+    """The top 32 bits of (x : nxt) << s, s in 0..31 (s == 0 gives x)."""
     # (nxt >> (32 - s)) in two steps: a shift by 32 is undefined
     lo = _srl32(_srl32(nxt, 31 - s), 1)
     return torch.where(s == 0, x, (x << s) | lo)
@@ -71,6 +78,47 @@ def verify_windows(packed_all, rows1, rows2, o1, o2, n, *, n_words):
     blk1 = align_window(packed_all[rows1.long()], o1)
     blk2 = align_window(packed_all[rows2.long()], o2)
     return _masked_equal(blk1, blk2, n, n_words)
+
+
+def _window_word(packed, rows, base_off, wi):
+    """The word covering bases [base_off + 16 wi, +16) of each row, by
+    per-element gathers.  Word indices outside the row follow JAX's gather:
+    a negative index counts from the end, then it is clamped to the row."""
+    w = packed.shape[1]
+
+    def col(idx):
+        idx = torch.where(idx < 0, idx + w, idx).clamp(0, w - 1)
+        return packed[rows, idx]
+
+    word_idx = (base_off >> 4) + wi
+    bit = ((base_off & 15) << 1).to(torch.int32)
+    return _funnel(col(word_idx), col(word_idx + 1), bit)
+
+
+def verify_windows_gather(packed_all, rows1, rows2, o1, o2, n, *, n_words):
+    """The per-element-gather formulation of `verify_windows`, a second
+    independent implementation for cross-checking the aligned path."""
+    rows1, rows2 = rows1.long(), rows2.long()
+    o1, o2 = o1.long(), o2.long()
+    n = n.to(torch.int32)
+    ok = torch.ones(rows1.shape, dtype=torch.bool, device=rows1.device)
+    for wi in range(n_words):
+        x = _window_word(packed_all, rows1, o1, wi)
+        y = _window_word(packed_all, rows2, o2, wi)
+        ok &= _masked_equal(x[:, None], y[:, None], n - 16 * wi, 1)
+    return ok
+
+
+def verify_windows_pallas(packed_all, rows1, rows2, o1, o2, n, *, n_words):
+    """Same contract as verify_windows: the row gathers and `align_window`
+    as there, then the aligned (W+1, P) columns go through `compare_windows`
+    (K7, overlap/pallas_kernel.py) with zero bit phases."""
+    from .pallas_kernel import compare_windows
+
+    a = align_window(packed_all[rows1.long()], o1).T.contiguous()
+    b = align_window(packed_all[rows2.long()], o2).T.contiguous()
+    zero = torch.zeros(a.shape[1], dtype=torch.int32, device=a.device)
+    return compare_windows(a, b, zero, zero, n)
 
 
 def as_words(x: np.ndarray, device=None) -> torch.Tensor:

@@ -82,6 +82,14 @@ def test_store_and_table_match_reference():
         a, b = getattr(t_got, f), getattr(t_want, f)
         assert a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b, err_msg=f)
+    # lookups: every table key, keys between and beyond them, 0 and 2^64-1
+    rng = np.random.default_rng(0)
+    q = np.concatenate([t_want.keys, t_want.keys + np.uint64(1),
+                        rng.integers(0, 2**64, 1000, dtype=np.uint64),
+                        np.array([0, 2**64 - 1], np.uint64)])
+    for a, b in zip(t_got.lookup_ranges(q), t_want.lookup_ranges(q)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 def test_checkpoint_skips_finished_build(tmp_path, monkeypatch):

@@ -1,6 +1,6 @@
-"""The CUDA kernels of disco_tpu_torch.overlap.fused_kernel against their
-plain versions, on a CUDA card.  Tolerance: exact — the outputs are
-booleans.
+"""The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
+K4, K6; overlap/pallas_kernel.py: K7) against their plain versions, on a
+CUDA card.  Tolerance: exact — the outputs are booleans.
 
 This file imports neither jax nor disco_tpu, so it also runs where only
 PyTorch is installed:
@@ -14,7 +14,8 @@ import torch
 
 from disco_tpu_torch.io.readstore import ReadStore
 from disco_tpu_torch.overlap import fused_kernel as port
-from disco_tpu_torch.overlap.verify import as_words
+from disco_tpu_torch.overlap import pallas_kernel
+from disco_tpu_torch.overlap.verify import align_window, as_words
 
 READ_LEN = 250
 
@@ -181,3 +182,138 @@ def test_kernels_on_empty_batch(cuda_device):
                     as_words(packed_all, cuda_device), cols, z, z, z, z, z,
                     z)):
         assert all(o.shape == (0,) and o.is_cuda for o in out)
+
+
+# ---------------------------------------------------------------------------
+# the single window check: K3, K4 (both table forms), K6, K7
+# ---------------------------------------------------------------------------
+def _single_cases(packed_all, rows1, rows2, o1, o2, n):
+    """(name, wrapper, kernel args, plain version, plain args) of every
+    single-check kernel over one batch, all on the CPU; read1's rows
+    sorted."""
+    rows1 = np.sort(rows1)
+    r1, r2, g = _t(rows1), _t(rows2), [_t(x) for x in (o1, o2, n)]
+    cols = lambda r: as_words(packed_all[r].T)               # noqa: E731
+    lines = as_words(port.pack_lines(packed_all)[0])
+    lines16 = as_words(port.pack_lines16(packed_all)[0])
+    nw = packed_all.shape[1] - 1
+    # K7 takes word-aligned columns and the bit phases
+    word = lambda o: _t(o & ~15)                             # noqa: E731
+    aligned = lambda r, o: align_window(                     # noqa: E731
+        as_words(packed_all[r]), word(o)).T.contiguous()
+    bits = [_t((o & 15) << 1) for o in (o1, o2)]
+    k7 = (aligned(rows1, o1), aligned(rows2, o2), *bits, g[2])
+    return [
+        ("K3", port.fused_compare, (cols(rows1), cols(rows2), *g),
+         port.fused_compare_plain),
+        ("K4", lambda *a: port.verify_windows_fused_mxu(*a, n_words=nw),
+         (lines, r1, r2, *g),
+         lambda *a: port.verify_windows_fused_mxu_plain(*a, n_words=nw)),
+        ("K4 (lines, packed_all)",
+         lambda *a: port.verify_windows_fused_mxu(*a, n_words=nw),
+         ((lines, as_words(packed_all)), r1, r2, *g),
+         lambda *a: port.verify_windows_fused_mxu_plain(*a, n_words=nw)),
+        ("K6", lambda *a: port.verify_windows_fused_mxu_both16(*a,
+                                                               n_words=nw),
+         (lines16, r1, r2, *g),
+         lambda *a: port.verify_windows_fused_mxu_both16_plain(*a,
+                                                               n_words=nw)),
+        ("K7", pallas_kernel.compare_windows, k7,
+         pallas_kernel.compare_windows_plain),
+    ]
+
+
+def _counter(name):
+    return {"K3": port.fused_compare, "K4": port.fused_compare_fetch,
+            "K6": port.verify_windows_fused_mxu_both16,
+            "K7": pallas_kernel.compare_windows}[name.split()[0]]
+
+
+def _to(x, device):
+    return (tuple(_to(t, device) for t in x) if isinstance(x, tuple)
+            else x.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2 * 1024, 100_003])
+def test_single_kernels_match_plain(cuda_device, p):
+    """Every bit phase of both offsets, windows ending at the read's last
+    base, n = 0, true matches; P = 1 and P not a multiple of 1024."""
+    packed_all, rows1, rows2, geo = _batch(seed=13, p=p)
+    for name, kern, args, plain in _single_cases(packed_all, rows1, rows2,
+                                                 *geo[:3]):
+        want = plain(*args)
+        counter = _counter(name)
+        before = counter.launches
+        got = kern(*(_to(a, cuda_device) for a in args))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, name
+        _assert_same([want], [got])
+        if p > 1:
+            assert want.any() and not want.all(), name
+
+
+@pytest.mark.cuda
+def test_single_kernels_read_zeros_past_row_end(cuda_device):
+    """K3, K4 and K6 read a word past the row as 0, like the TPU kernels'
+    zero-filled roll; the reference is the plain check over rows padded
+    with two zero words.  K7 compares words wi < W only: a window longer
+    than 16 W bases is compared over W words, as its plain version does."""
+    packed_all, rows1, rows2, _ = _batch(seed=17, p=3001)
+    rows1 = np.sort(rows1)
+    rows1[-8:] = len(packed_all) - 1
+    cases = {"K3": packed_all,
+             "K4": port.pack_lines(packed_all)[0].reshape(-1, 32),
+             "K6": port.pack_lines16(packed_all)[0].reshape(-1, 16)}
+    for name, table in cases.items():
+        wp = table.shape[1]
+        same, (o1, o2, n, _, _) = _past_row_geometry(seed=17, p=len(rows1),
+                                                     wp=wp)
+        r1 = rows1 if name == "K3" else np.minimum(rows1, len(table) - 1)
+        r2 = np.where(same, r1, rows2)
+        padded = np.zeros((len(table), wp + 2), np.uint32)
+        padded[:, :wp] = table
+        g = [_t(x) for x in (o1, o2, n)]
+        want = port.window_check_plain(as_words(padded[r1]),
+                                       as_words(padded[r2]), *g)
+        wrapped = port.window_check_plain(as_words(table[r1]),
+                                          as_words(table[r2]), *g)
+        assert want.any() and (want != wrapped).any(), name
+        dev = [x.to(cuda_device) for x in (_t(r1), _t(r2), *g)]
+        if name == "K3":
+            got = port.fused_compare(
+                as_words(table[r1].T, cuda_device),
+                as_words(table[r2].T, cuda_device), *dev[2:])
+        elif name == "K4":
+            lines = as_words(table.reshape(-1, 128), cuda_device)
+            got = port.verify_windows_fused_mxu(lines, *dev, n_words=16)
+        else:
+            lines = as_words(table.reshape(-1, 128), cuda_device)
+            got = port.verify_windows_fused_mxu_both16(lines, *dev,
+                                                       n_words=16)
+        torch.cuda.synchronize()
+        _assert_same([want], [got])
+    # K7: lengths up to 16 (W + 2) bases over (W + 1)-word columns
+    w1 = packed_all.shape[1]
+    rng = np.random.default_rng(17)
+    a = packed_all[rows1].T
+    b = np.where(rng.random(a.shape) < 0.02, a ^ np.uint32(1), a)
+    b[-1] ^= np.uint32(0xFFFFFFFF)           # the funnel word differs
+    bits = [_t(2 * rng.integers(0, 16, len(rows1))) for _ in range(2)]
+    bits[1] = bits[0]
+    n = _t(rng.integers(0, 16 * (w1 + 2), len(rows1)))
+    args = (as_words(a), as_words(b), *bits, n)
+    want = pallas_kernel.compare_windows_plain(*args)
+    got = pallas_kernel.compare_windows(*(x.to(cuda_device) for x in args))
+    torch.cuda.synchronize()
+    _assert_same([want], [got])
+    assert want.any() and not want.all()
+
+
+@pytest.mark.cuda
+def test_single_kernels_on_empty_batch(cuda_device):
+    packed_all, _, _, _ = _batch(seed=1, p=1)
+    z = np.zeros(0, np.int64)
+    for name, kern, args, _ in _single_cases(packed_all, z, z, z, z, z):
+        out = kern(*(_to(a, cuda_device) for a in args))
+        assert out.shape == (0,) and out.is_cuda, name

@@ -124,3 +124,161 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         port.fused_compare_dual_fetch(as_words(packed_all), cols,
                                       _t(rows2[:10]), *g)
+
+
+# ---------------------------------------------------------------------------
+# the single window check: K3, K4, K6
+# ---------------------------------------------------------------------------
+def _single(seed, p, n_reads=200):
+    """rows1 read ids, rows2 stacked-table rows and one window each, inside
+    the 100 bp rows (offsets < 60, lengths < 40), n = 0 on a tenth of the
+    pairs and a third of the pairs true matches."""
+    rng, store, packed_all, rows2, (o1, o2, n, _, _) = _fixture(seed, p,
+                                                                n_reads)
+    rows1 = rng.integers(0, store.n_reads, p).astype(np.int32)
+    m = np.arange(p) % 3 == 0
+    rows2[m], o2[m] = rows1[m], o1[m]
+    n[::10] = 0
+    return rng, store, packed_all, rows1, rows2, o1, o2, n
+
+
+def _ints(*xs):
+    return [_t(x) for x in xs]
+
+
+@pytest.mark.parametrize("p", [2 * TILE, 1500])
+def test_fused_paths_match_pallas(p):
+    """K3 through verify_windows_fused and verify_windows_fused_t (plain on
+    the CPU) against the Pallas kernel in interpret mode."""
+    _, store, packed_all, rows1, rows2, o1, o2, n = _single(seed=41, p=p)
+    args = (rows1, rows2, o1, o2, n)
+    want = np.asarray(ref.verify_windows_fused(
+        packed_all, *args, n_words=store.n_words, interpret=True))
+    got = port.verify_windows_fused(as_words(packed_all), *_ints(*args),
+                                    n_words=store.n_words)
+    got_t = port.verify_windows_fused_t(
+        as_words(np.ascontiguousarray(packed_all.T)), *_ints(*args),
+        n_words=store.n_words)
+    for g in (got, got_t):
+        assert g.dtype == torch.bool and g.shape == (p,)
+        np.testing.assert_array_equal(g.numpy(), want)
+    assert want[::10].all() and want[::3].all() and not want.all()
+    assert port.fused_compare.launches == 0
+
+
+@pytest.mark.parametrize("order", ["sorted", "random"])
+def test_mxu_fetch_matches_pallas(order):
+    """K4 in both table forms against verify_windows_fused_mxu in interpret
+    mode; random rows1 take the Pallas version's in-graph fallback to K3,
+    and the booleans must be the same."""
+    rng, store, packed_all, rows1, rows2, o1, o2, n = _single(
+        seed=43, p=2 * TILE + 300)
+    if order == "sorted":
+        rows1 = np.sort(rng.integers(0, 55, len(rows1))).astype(np.int32)
+    else:
+        rows1 = rng.integers(0, len(packed_all), len(rows1)).astype(np.int32)
+    args = (rows1, rows2, o1, o2, n)
+    lines, nr = ref.pack_lines(packed_all)
+    for table in (lines, (lines, packed_all)):
+        want = np.asarray(ref.verify_windows_fused_mxu(
+            table, *args, n_words=store.n_words, interpret=True))
+        ptable = (tuple(as_words(t) for t in table)
+                  if isinstance(table, tuple) else as_words(table))
+        got = port.verify_windows_fused_mxu(ptable, *_ints(*args),
+                                            n_words=store.n_words)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want.any() and not want.all()
+    assert port.fused_compare_fetch.launches == 0
+
+
+def test_mxu_fetch_empty_input():
+    _, store, packed_all, *_ = _single(seed=13, p=64)
+    lines = as_words(port.pack_lines(packed_all)[0])
+    z = torch.zeros(0, dtype=torch.int32)
+    for table in (lines, (lines, as_words(packed_all))):
+        got = port.verify_windows_fused_mxu(table, z, z, z, z, z,
+                                            n_words=store.n_words)
+        assert got.shape == (0,) and got.dtype == torch.bool
+    got = port.verify_windows_fused_mxu_both16(
+        as_words(port.pack_lines16(packed_all)[0]), z, z, z, z, z,
+        n_words=store.n_words)
+    assert got.shape == (0,) and got.dtype == torch.bool
+
+
+@pytest.mark.parametrize("layout", ["relabeled", "wide_span"])
+def test_both16_matches_pallas(layout):
+    """K6 against verify_windows_fused_mxu_both16 in interpret mode, over a
+    relabeled workload of 200 reads (the Pallas kernel proper) and over an
+    unrelabeled one of 2000 reads, whose tile spans are too wide for it (its
+    in-graph gather fallback)."""
+    from disco_tpu.overlap.locality import relabel_workload
+
+    _, store, packed_all, rows1, rows2, o1, o2, n = _single(
+        seed=47, p=4096, n_reads=200 if layout == "relabeled" else 2000)
+    rows1 = np.sort(rows1)
+    args = (rows1, rows2, o1, o2, n)
+    want = np.asarray(ref.verify_windows_fused_mxu_both16(
+        ref.pack_lines16(packed_all)[0], *args, n_words=store.n_words,
+        interpret=True))
+    table = packed_all
+    if layout == "relabeled":
+        table, *args, perm, _, o1p, o2p, n_p = relabel_workload(
+            store.n_reads, packed_all, rows1, rows2, o1, o2, n)
+        args = [args[0], args[1], o1p, o2p, n_p]
+        want_p = np.asarray(ref.verify_windows_fused_mxu_both16(
+            ref.pack_lines16(table)[0], *args, n_words=store.n_words,
+            interpret=True))
+        np.testing.assert_array_equal(want_p, want[perm])
+        want = want_p
+    lines16 = port.pack_lines16(table)[0]
+    got = port.verify_windows_fused_mxu_both16(
+        as_words(lines16), *_ints(*args), n_words=store.n_words)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+    assert port.verify_windows_fused_mxu_both16.launches == 0
+
+
+def test_pack_lines_equal():
+    _, store, packed_all, *_ = _fixture(seed=51, p=8)
+    for fn in ("pack_lines", "pack_lines16"):
+        want, want_n = getattr(ref, fn)(packed_all)
+        got, got_n = getattr(port, fn)(packed_all)
+        assert got.dtype == want.dtype == np.uint32 and got_n == want_n
+        np.testing.assert_array_equal(got, want)
+    wide = np.zeros((4, 18), np.uint32)
+    with pytest.raises(ValueError, match="256 bp"):
+        port.pack_lines16(wide)
+    with pytest.raises(ValueError, match="256 bp"):
+        port.verify_windows_fused_mxu_both16(
+            as_words(port.pack_lines16(packed_all)[0]),
+            *[torch.zeros(1, dtype=torch.int32)] * 5, n_words=17)
+
+
+def test_single_wrappers_reject_bad_inputs():
+    from disco_tpu_torch.overlap.pallas_kernel import compare_windows
+
+    _, store, packed_all, rows1, rows2, o1, o2, n = _single(seed=1, p=64)
+    cols = as_words(packed_all[rows2].T)
+    g = _ints(o1, o2, n)
+    lines = as_words(port.pack_lines(packed_all)[0])
+    r1, r2 = _ints(rows1, rows2)
+    with pytest.raises(TypeError):
+        port.fused_compare(cols, cols, g[0].long(), *g[1:])
+    with pytest.raises(ValueError):
+        port.fused_compare(cols, cols[:, :32], *g)
+    with pytest.raises(ValueError):
+        port.fused_compare(cols, cols, *g[:2], g[2][:10])
+    with pytest.raises(ValueError):
+        port.verify_windows_fused_mxu(lines.view(-1, 32), r1, r2, *g,
+                                      n_words=store.n_words)
+    with pytest.raises(ValueError):
+        port.verify_windows_fused_mxu((lines, as_words(np.zeros((4, 33),
+                                                                np.uint32))),
+                                      r1, r2, *g, n_words=store.n_words)
+    with pytest.raises(ValueError):
+        port.fused_compare_fetch(lines.view(-1, 32), cols, r1[:10], *g)
+    with pytest.raises(ValueError):
+        port.verify_windows_fused_mxu_both16(lines, r1[:10], r2, *g,
+                                             n_words=store.n_words)
+    with pytest.raises(ValueError):
+        compare_windows(cols, cols.T.contiguous().T, *g)

@@ -28,7 +28,9 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "disco_tpu_torch.overlap.fused_kernel" in mods
+    for m in ("overlap.fused_kernel", "overlap.pallas_kernel",
+              "overlap.locality", "bench_verify"):
+        assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -81,3 +83,18 @@ def test_cli_unported_options_raise():
             "        raise AssertionError(extra)\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
+
+
+def test_bench_verify_help_without_jax():
+    code = ("import runpy, sys\n"
+            "sys.argv = ['bench_verify', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('disco_tpu_torch.bench_verify',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert 'jax' not in sys.modules\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    for opt in ("--path", "--genome-len", "--device", "fused_mxu3"):
+        assert opt in res.stdout

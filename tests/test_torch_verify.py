@@ -132,3 +132,41 @@ def test_make_packed_all_bits():
     np.testing.assert_array_equal(
         np.asarray(ref.make_packed_all(store.packed, store.packed_rc)),
         packed_all)
+
+
+@pytest.mark.parametrize("kind", ["random", "phases", "row_end", "zero_n"])
+def test_verify_windows_gather_twin(kind):
+    """The per-element-gather oracle, word indices past the row included
+    (they follow JAX's clamped gather)."""
+    rng, store, packed_all = _reads(seed=20 + len(kind))
+    rows1, rows2, o1, o2, nl = _pairs(rng, store, 1500, kind)
+    want = np.asarray(ref.verify_windows_gather(
+        packed_all, rows1, rows2, o1, o2, nl, n_words=store.n_words))
+    got = port.verify_windows_gather(_words(packed_all), _t(rows1),
+                                     _t(rows2), _t(o1), _t(o2), _t(nl),
+                                     n_words=store.n_words)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind != "zero_n":
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("kind,p", [("random", 4096), ("phases", 1500),
+                                    ("row_end", 1500), ("zero_n", 1500)])
+def test_verify_windows_pallas_twin(kind, p):
+    """K7 behind its align preamble: the port's plain compare on the CPU
+    against disco_tpu's Pallas kernel in interpret mode."""
+    from disco_tpu_torch.overlap import pallas_kernel
+
+    rng, store, packed_all = _reads(seed=30 + len(kind))
+    rows1, rows2, o1, o2, nl = _pairs(rng, store, p, kind)
+    want = np.asarray(ref.verify_windows_pallas(
+        packed_all, rows1, rows2, o1, o2, nl, n_words=store.n_words,
+        interpret=True))
+    got = port.verify_windows_pallas(_words(packed_all), _t(rows1),
+                                     _t(rows2), _t(o1), _t(o2), _t(nl),
+                                     n_words=store.n_words)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert pallas_kernel.compare_windows.launches == 0
+    if kind in ("phases", "row_end"):
+        assert got[::3].all() and not got.all()
