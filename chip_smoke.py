@@ -45,7 +45,29 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    after and each must be above 0.  Then each kernel against its plain
    version, timed by CUDA events at P = 2^22 (the median over 5 spread
    slices), each path's pairs/s, and an edge-case batch (every bit phase,
-   n = 0, P = 1 and 3001, windows past the row, K7's over-long windows).
+   n = 0, P = 1 and 3001, windows past the row, K7's over-long windows);
+8. fetch experiments (`python -m disco_tpu_torch.tools.exp_fetch_variants`
+   and `exp_mxu_fetch`) on phase 7's batch and relabel: with the K5, T1,
+   T2 and T3 launch counts set to 0, K5 over the relabeled 32-word table
+   (`verify_windows_fused_mxu_both`), T1 (`verify_sync`) and T2
+   (`verify_pipe_nc`) over the r1-sorted batch with the (lines, packed)
+   tables, in slices of 2^22 pairs, as made and with read2's window moved
+   one base on odd pairs, each slice equal to the plain verify_windows;
+   T3 (`fetch_checksum`) over the r1-sorted tiles with salt 0 and 1, equal
+   to the tool's numpy checksum.  The counts are read right after and each
+   must be above 0.  Then each kernel against its plain version, timed at
+   P = 2^22, its out-of-window row reads, and edge-case batches (every bit
+   phase, n = 0, P = 1 and 3001, rows outside every window, windows past
+   the row).
+
+Each kernel's bound is the least time the card could take for its work:
+the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
+over 67e12 a second (the H100 SXM figures of NVIDIA's data sheet).  Its
+bytes are counted from the inputs it was timed on: 12 B of window geometry
+a pair (20 B for the dual check), each row index, each output, the words
+each window spans in a column input, and each distinct row a fetch kernel
+reads (its Wp = n_words + 1 data words), each once.  No single PyTorch call
+computes a packed-window compare or the checksum, so `library_ms` is null.
 
 With --profile, one more device relation runs under cProfile and
 torch.profiler: host functions by cumulative seconds, the device's busy
@@ -76,6 +98,7 @@ K1_REPLACES = "disco_tpu/overlap/fused_kernel.py:120"   # fused_compare_dual
 K2_REPLACES = "disco_tpu/overlap/fused_kernel.py:737"   # fused_compare_dual_mxu
 KERNEL_SOURCE = "disco_tpu_torch/csrc/dual_compare.cu"
 WINDOW_SOURCE = "disco_tpu_torch/csrc/window_compare.cu"
+STAGED_SOURCE = "disco_tpu_torch/csrc/window_staged.cu"
 # the single-check kernels: (id, wrapper name, the TPU kernel it replaces)
 SINGLE_KERNELS = (
     ("K3", "fused_compare", "disco_tpu/overlap/fused_kernel.py:148"),
@@ -84,6 +107,17 @@ SINGLE_KERNELS = (
      "disco_tpu/overlap/fused_kernel.py:667"),
     ("K7", "compare_windows", "disco_tpu/overlap/pallas_kernel.py:68"),
 )
+# phase 8: (id, wrapper name, the TPU kernel it replaces, source)
+FETCH_KERNELS = (
+    ("K5", "verify_windows_fused_mxu_both",
+     "disco_tpu/overlap/fused_kernel.py:515", STAGED_SOURCE),
+    ("T1", "verify_sync", "tools/exp_fetch_variants.py:80", STAGED_SOURCE),
+    ("T2", "verify_pipe_nc", "tools/exp_fetch_variants.py:117",
+     WINDOW_SOURCE),
+    ("T3", "fetch_checksum", "tools/exp_mxu_fetch.py:28", STAGED_SOURCE),
+)
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
            "_CheckpointInfo.txt")
 
@@ -149,6 +183,59 @@ def max_abs_err(got, want):
         check(g.shape == w.shape and g.dtype == torch.bool, "output shape")
         err = max(err, int((g.int() - w.int()).abs().max()) if len(g) else 0)
     return err
+
+
+# ---------------------------------------------------------------------------
+# bounds: bytes and operations of a kernel's work on the inputs it ran on
+# ---------------------------------------------------------------------------
+def span(o, n):
+    """(P,) int64: the words a window of n bases at base offset o spans."""
+    import torch
+    o, n = o.long(), n.long()
+    return torch.where(n > 0, ((o + n - 1) >> 4) - (o >> 4) + 1, 0)
+
+
+def span_union(o_a, n_a, o_b, n_b):
+    """(P,) int64: the words two windows of one row span together."""
+    import torch
+    a0, b0 = o_a.long() >> 4, o_b.long() >> 4
+    a1, b1 = a0 + span(o_a, n_a) - 1, b0 + span(o_b, n_b) - 1
+    both = (n_a > 0) & (n_b > 0)
+    inter = (torch.minimum(a1, b1) - torch.maximum(a0, b0) + 1).clamp(min=0)
+    return span(o_a, n_a) + span(o_b, n_b) - torch.where(both, inter, 0)
+
+
+def distinct(*rows):
+    import torch
+    return int(torch.unique(torch.cat([r.long() for r in rows])).numel())
+
+
+def compared_words(n):
+    """Words a compare of n bases takes: ceil(n / 16)."""
+    return int(((n.long().clamp(min=0) + 15) >> 4).sum())
+
+
+def bound(nbytes, ops):
+    """{bytes, bound_ms, bound_by}: the larger of the two times."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bytes": int(nbytes), "bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def window_bound(p, col_words, fetched_bytes, index_bytes, n, geo_bytes=12,
+                 out_bytes=1, checks=1):
+    """A window check's bound: per pair its geometry, row indices and
+    output; the words its column inputs span; the distinct rows it fetches.
+    About 5 operations (two funnel shifts, XOR, mask, compare) a compared
+    word."""
+    nbytes = (p * (geo_bytes + index_bytes + out_bytes) + 4 * int(col_words)
+              + fetched_bytes)
+    return bound(nbytes, 5 * n)
+
+
+def median_bound(bounds):
+    """The bound of the median-bytes slice of several."""
+    return sorted(bounds, key=lambda b: b["bytes"])[len(bounds) // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +353,21 @@ def past_row_check(eng, errs, p=3001, seed=2):
         "zero-padded rows")
 
 
+def dual_bounds(rows1, geo, wp):
+    """K1's and K2's bounds on one chunk: K1 reads the words both windows
+    span in both column inputs; K2 reads read1's distinct rows instead."""
+    e_o1, e_o2, e_n, c_o1, c_n = geo
+    p = len(e_n)
+    n = compared_words(e_n) + compared_words(c_n)
+    b_words = span_union(e_o2, e_n, 0 * c_n, c_n).sum()
+    a_words = span_union(e_o1, e_n, c_o1, c_n).sum()
+    k1 = window_bound(p, a_words + b_words, 0, 0, n, geo_bytes=20,
+                      out_bytes=2)
+    k2 = window_bound(p, b_words, 4 * wp * distinct(rows1), 4, n,
+                      geo_bytes=20, out_bytes=2)
+    return k1, k2
+
+
 def kernel_phase(store, table):
     import numpy as np
     import torch
@@ -278,6 +380,7 @@ def kernel_phase(store, table):
     picks = sorted({int(c) for c in np.linspace(0, max(n_chunks - 2, 0), 5)})
     times = {"K1": [], "K1_plain": [], "K2": [], "K2_plain": []}
     errs = {"K1": 0, "K2": 0}
+    bounds = {"K1": [], "K2": []}
 
     def run_both(rows1, a, b, geo, timed):
         k1 = lambda: fk.fused_compare_dual(a, b, *geo)             # noqa
@@ -304,6 +407,9 @@ def kernel_phase(store, table):
         rows1, a, b, geo, n_cand = chunk_inputs(
             eng, starts[c * CHUNK:(c + 1) * CHUNK])
         want = run_both(rows1, a, b, geo, timed=True)
+        for name, bd in zip(("K1", "K2"), dual_bounds(
+                rows1, geo, eng.packed_all.shape[1])):
+            bounds[name].append(bd)
         e_live, c_live = geo[2] > 0, geo[4] > 0
         say(f"kernels: chunk {c}/{n_chunks}: {n_cand} candidates, "
             f"P = {b.shape[1]}, Wp = {b.shape[0]}; edge windows "
@@ -331,12 +437,15 @@ def kernel_phase(store, table):
         "(Wb = 17 and 32, sorted and unsorted rows1)")
     past_row_check(eng, errs)
     med = {k: statistics.median(v) for k, v in times.items()}
+    bounds = {k: median_bound(v) for k, v in bounds.items()}
     for name in ("K1", "K2"):
         say(f"kernels: {name} {med[name]:.4f} ms, plain "
-            f"{med[name + '_plain']:.4f} ms (median of {len(picks)} chunks)")
+            f"{med[name + '_plain']:.4f} ms (median of {len(picks)} chunks); "
+            f"{bounds[name]['bytes']} B, bound {bounds[name]['bound_ms']:.4f} "
+            f"ms ({bounds[name]['bound_by']})")
     del eng
     torch.cuda.empty_cache()
-    return med, errs
+    return med, errs, bounds
 
 
 def golden_phase(tmp: pathlib.Path):
@@ -406,6 +515,26 @@ def kernel_inputs(wls, sl):
         "K7": (pk.compare_windows, pk.compare_windows_plain,
                (*aligned, zero, zero, n), {}),
     }
+
+
+def single_bound(k, args, wp):
+    """The bound of single-check kernel k on its `kernel_inputs` args."""
+    if k == "K3":
+        _, _, o1, o2, n = args
+        return window_bound(len(n), (span(o1, n) + span(o2, n)).sum(), 0, 0,
+                            compared_words(n))
+    if k == "K4":
+        _, _, r1, _, o2, n = args
+        return window_bound(len(n), span(o2, n).sum(),
+                            4 * wp * distinct(r1), 4, compared_words(n))
+    if k == "K6":
+        _, r1, r2, _, _, n = args
+        return window_bound(len(n), 0, 4 * min(wp, 16) * distinct(r1, r2), 8,
+                            compared_words(n))
+    a, _, bit1, bit2, n = args             # K7: aligned (W + 1, P) columns
+    nn = n.clamp(max=16 * (a.shape[0] - 1))
+    return window_bound(len(n), (span(bit1 >> 1, nn) + span(bit2 >> 1, nn)
+                                 ).sum(), 0, 0, compared_words(nn))
 
 
 def single_edge_cases(pa, errs, seed=3):
@@ -494,7 +623,10 @@ def single_edge_cases(pa, errs, seed=3):
 
 
 def verify_paths_phase(fasta, min_ovl):
-    """Phase 7.  Returns (times, errs, launches) keyed by kernel id."""
+    """Phase 7.  Returns (times, errs, launches, bounds) keyed by kernel id,
+    and what phase 8 reuses: the batch, the host workloads (fused_mxu3's
+    holds the relabel), the plain booleans as made and moved, and the
+    moved offsets."""
     import numpy as np
     import torch
     from disco_tpu_torch import bench_verify as bv
@@ -585,9 +717,12 @@ def verify_paths_phase(fasta, min_ovl):
              sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
     times = {}
     errs = {}
+    bounds = {}
     path_ms = {path: [] for path in on_card}
     for sl in picks:
         for k, (fn, plain, args, kw) in kernel_inputs(on_card, sl).items():
+            bounds.setdefault(k, []).append(
+                single_bound(k, args, store.n_words + 1))
             got, ref = fn(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err = max_abs_err([got], [ref])
@@ -602,10 +737,12 @@ def verify_paths_phase(fasta, min_ovl):
         for path, dwl in on_card.items():
             path_ms[path].append(cuda_ms(lambda: dwl.verify(sl), 10))
     med = {k: statistics.median(v) for k, v in times.items()}
+    bounds = {k: median_bound(v) for k, v in bounds.items()}
     for k, name, _ in SINGLE_KERNELS:
         say(f"verify: {k} {name} {med[k]:.4f} ms, plain "
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
-            f"{len(picks)} slices)")
+            f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
+            f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
     for path, ms in path_ms.items():
         m = statistics.median(ms)
         say(f"verify: path {path}: {m:.4f} ms per {VERIFY_SLICE} pairs, "
@@ -613,7 +750,249 @@ def verify_paths_phase(fasta, min_ovl):
     single_edge_cases(on_card["fused"].table, errs)
     del on_card
     torch.cuda.empty_cache()
-    return med, errs, launches
+    return med, errs, launches, bounds, (batch, wls, want, odd)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the fetch experiments (K5, T1, T2, T3)
+# ---------------------------------------------------------------------------
+def fetch_kernels():
+    """id -> wrapper of the phase 8 kernels (each with its launch count)."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_fetch_variants as fv
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
+    return {"K5": fk.verify_windows_fused_mxu_both, "T1": fv.verify_sync,
+            "T2": fv.verify_pipe_nc, "T3": mf.fetch_checksum}
+
+
+def fetch_inputs(d, sl, wp):
+    """Each phase 8 kernel's launch, plain version, arguments and bound at
+    pairs `sl`: K5 on the relabeled 32-word table, T1's and T2's launches
+    on the (lines, packed) tables with read2's columns gathered, T3 on the
+    r1-sorted rows with salt 0.  The launches time the kernels alone: T1 and
+    T2 gather read2's columns first, as K4's wrapper does."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_fetch_variants as fv
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
+    r1, r2, o1, o2, n = (x[sl] for x in d["batch"])
+    q1, q2, p1, p2, pn = (x[sl] for x in d["relab"])
+    table, b = fv._tables(d["lines"], d["packed"], r2)
+    bases = r1[::fk.TILE].contiguous()
+    p, nw = len(n), wp - 1
+    k1 = window_bound(p, span(o2, n).sum(), 4 * wp * distinct(r1), 4,
+                      compared_words(n))
+    return {
+        "K5": (lambda *a: fk.verify_windows_fused_mxu_both(*a, n_words=nw),
+               lambda *a: fk.verify_windows_fused_mxu_both_plain(
+                   *a, n_words=nw),
+               (d["lines_relab"], q1, q2, p1, p2, pn),
+               window_bound(p, 0, 4 * wp * distinct(q1, q2), 8,
+                            compared_words(pn))),
+        "T1": (lambda *a: fv.compare_staged(*a)[0],
+               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1),
+        "T2": (lambda *a: fk.compare_fetch(*a)[0],
+               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1),
+        "T3": (mf.fetch_checksum, mf.fetch_checksum_plain,
+               (d["packed"], r1, bases, 0),
+               bound(p * 8 + 4 * len(bases) + 4 * wp * distinct(r1),
+                     2 * wp * p)),
+    }
+
+
+def fetch_edge_cases(pa, errs, seed=5):
+    """K5, T1, T2 and T3 against their plain versions on synthetic batches
+    over random 32-word rows (so that the words past the staged ones come
+    from device memory): every bit phase, n = 0, P = 1 and 3001, sorted
+    rows and random rows (outside every window), windows up to one word
+    past the compared row (the plain check over rows padded with two zero
+    words), and T3 on rows past both ends of the table."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_fetch_variants as fv
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
+    rng = np.random.default_rng(seed)
+    n_rows = 4096
+    lines = torch.from_numpy(rng.integers(
+        0, 2 ** 32, (n_rows // 4, 128), dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(DEVICE)
+    table = lines.view(-1, 32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(DEVICE)
+
+    def run(name, got, want, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name}: output {got.dtype} {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max()) if len(got) else 0
+        check(err == 0, f"{name} disagrees with its plain version on "
+                        f"{int((got != want).sum())} of {len(got)} {what}")
+        errs[name] = max(errs.get(name, 0), err)
+
+    missed = {k: 0 for k in ("K5", "T1", "T3")}
+    for p in (1, 3001):
+        for order in ("sorted", "random"):
+            i = np.arange(p)
+            rows1 = rng.integers(0, n_rows, p)
+            if order == "sorted":
+                rows1 = np.sort(rng.integers(0, 200, p))
+            rows2 = np.where(i % 4 == 0, rows1, rng.integers(0, n_rows, p))
+            o1 = rng.integers(0, 16 * 20, p) & ~15 | (i & 15)
+            o2 = np.where(i % 4 == 0, o1,
+                          rng.integers(0, 16 * 20, p) & ~15 | (i >> 4) & 15)
+            n = np.minimum(16 * 22 - np.maximum(o1, o2),
+                           rng.integers(0, 300, p))
+            n[::7] = 0
+            r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
+            run("K5", fk.verify_windows_fused_mxu_both(lines, r1, r2, *g,
+                                                       n_words=16),
+                fk.verify_windows_fused_mxu_both_plain(lines, r1, r2, *g,
+                                                       n_words=16), "pairs")
+            missed["K5"] += int(fk.verify_windows_fused_mxu_both.out_of_window)
+            run("T1", fv.verify_sync(lines, table, r1, r2, *g),
+                fv.verify_sync_plain(lines, table, r1, r2, *g), "pairs")
+            missed["T1"] += int(fv.verify_sync.out_of_window)
+            run("T2", fv.verify_pipe_nc(lines, table, r1, r2, *g),
+                fv.verify_sync_plain(lines, table, r1, r2, *g), "pairs")
+            bases = t(np.sort(rows1)[::fk.TILE])
+            rows = t(rows1 + rng.integers(-1, 2, p) * (i % 50 == 0) * n_rows)
+            for salt in (0, 1):
+                run("T3", mf.fetch_checksum(table, rows, bases, salt),
+                    mf.fetch_checksum_plain(table, rows, bases, salt), "rows")
+                missed["T3"] += int(mf.fetch_checksum.out_of_window)
+    check(all(m > 0 for m in missed.values()),
+          f"the random rows missed no window: {missed}")
+    # past the compared row: K5 compares 24 words, T1 and T2 32
+    for name, w in (("K5", fk.W_CMP), ("T1", 32), ("T2", 32)):
+        _, rows1, rows2, o1, o2, n = past_row_pairs(rng, n_rows, w)
+        r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
+        padded = torch.zeros((n_rows, w + 2), dtype=torch.int32,
+                             device=DEVICE)
+        padded[:, :w] = table[:, :w]
+        want = fk.window_check_plain(padded[r1.long()], padded[r2.long()],
+                                     *g)
+        if name == "K5":
+            got = fk.verify_windows_fused_mxu_both(lines, r1, r2, *g,
+                                                   n_words=16)
+        else:
+            fn = fv.verify_sync if name == "T1" else fv.verify_pipe_nc
+            got = fn(lines, table, r1, r2, *g)
+        run(name, got, want, "past-row pairs")
+    say("fetch: edge-case batches (P = 1 and 3001, every bit phase, n = 0, "
+        "sorted and random rows, windows up to one word past the row, T3 "
+        "rows past the table, salt 0 and 1): K5, T1, T2, T3 == plain; "
+        "out-of-window row reads on them " + ", ".join(
+            f"{k} {m}" for k, m in missed.items()))
+
+
+def fetch_phase(batch, wls, want, odd):
+    """Phase 8.  Returns (times, errs, launches, bounds) keyed by kernel
+    id."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
+
+    t0 = time.perf_counter()
+    store = batch[0]
+    wp = store.n_words + 1
+    orig, relab = wls["xla"].to(DEVICE), wls["fused_mxu3"]
+    check(relab.packed is not None, "fused_mxu3 kept no relabeled table")
+    perm = torch.from_numpy(relab.perm).to(DEVICE)
+    rdev = relab.to(DEVICE)
+    pa = orig.table
+    d = {"batch": (orig.rows1, orig.rows2, orig.o1, orig.o2, orig.n),
+         "relab": (rdev.rows1, rdev.rows2, rdev.o1, rdev.o2, rdev.n),
+         "packed": pa,
+         "lines": torch.from_numpy(fk.pack_lines(
+             pa.cpu().numpy().view(np.uint32))[0].view(np.int32)).to(DEVICE),
+         "lines_relab": torch.from_numpy(fk.pack_lines(
+             relab.packed)[0].view(np.int32)).to(DEVICE)}
+    n_pairs = len(orig.n)
+    slices = [slice(s, min(s + VERIFY_SLICE, n_pairs))
+              for s in range(0, n_pairs, VERIFY_SLICE)]
+    # the tool's checksum per table row: a pair's is its row's
+    row_sums = torch.from_numpy(mf.checksum_numpy(
+        pa.cpu().numpy().view(np.uint32), np.arange(len(pa)))).to(DEVICE)
+    say(f"fetch: set-up {time.perf_counter() - t0:.2f} s (32-word line "
+        "tables of the batch and of phase 7's relabel)")
+
+    kern = fetch_kernels()
+    for k in kern.values():
+        k.launches = 0
+    misses = {"K5": 0, "T1": 0, "T3": 0}
+    t0 = time.perf_counter()
+    r1, r2, o1, o2, n = d["batch"]
+    q1, q2, p1, p2, pn = d["relab"]
+    for moved in (0, 1):
+        o2m, p2m = o2 + moved * odd, p2 + moved * odd[perm]
+        for sl in slices:
+            ref, ref_r = want[moved][sl], want[moved][perm[sl]]
+            got = {
+                "K5": (fk.verify_windows_fused_mxu_both(
+                    d["lines_relab"], q1[sl], q2[sl], p1[sl], p2m[sl],
+                    pn[sl], n_words=store.n_words), ref_r),
+                "T1": (kern["T1"](d["lines"], pa, r1[sl], r2[sl], o1[sl],
+                                  o2m[sl], n[sl]), ref),
+                "T2": (kern["T2"](d["lines"], pa, r1[sl], r2[sl], o1[sl],
+                                  o2m[sl], n[sl]), ref),
+                "T3": (kern["T3"](pa, r1[sl], r1[sl][::fk.TILE].contiguous(),
+                                  moved),
+                       row_sums[r1[sl].long() + moved].to(torch.int32)),
+            }
+            for k, m in misses.items():
+                misses[k] = m + int(kern[k].out_of_window)
+            for k, (g, w) in got.items():
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"{k}: output {g.dtype} {tuple(g.shape)}")
+                bad = int((g != w).sum())
+                check(bad == 0, f"{k}: {bad} of {len(g)} pairs of slice "
+                                f"{sl.start}:{sl.stop} (moved {moved}) differ "
+                                "from " + ("the numpy checksum" if k == "T3"
+                                           else "the plain verify_windows"))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in kern.items()}
+    say(f"fetch: K5 (relabeled), T1, T2 on {len(slices)} slices of up to "
+        f"{VERIFY_SLICE} pairs, as made and with the moved windows, == plain "
+        "verify_windows; T3 with salt 0 and 1 == the numpy checksum "
+        f"({time.perf_counter() - t0:.2f} s)")
+    say("fetch: launches on the fetch experiments: " + ", ".join(
+        f"{k} {c}" for k, c in launches.items()))
+    say("fetch: out-of-window row reads over the batch (both passes): " +
+        ", ".join(f"{k} {m} of {2 * n_pairs * (2 if k == 'K5' else 1)}"
+                  for k, m in misses.items()))
+    for k, c in launches.items():
+        check(c > 0, f"the fetch experiments never launched {k}")
+
+    full = [sl for sl in slices if sl.stop - sl.start == VERIFY_SLICE]
+    picks = [full[int(i)] for i in
+             sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
+    times, errs, bounds = {}, {}, {}
+    for sl in picks:
+        for k, (fn, plain, args, bd) in fetch_inputs(d, sl, wp).items():
+            got, ref = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            check(err == 0, f"{k} disagrees with its plain version on "
+                            f"{int((got != ref).sum())} pairs of slice "
+                            f"{sl.start}:{sl.stop}")
+            errs[k] = max(errs.get(k, 0), err)
+            bounds.setdefault(k, []).append(bd)
+            times.setdefault(k, []).append(cuda_ms(lambda: fn(*args), 20))
+            times.setdefault(k + "_plain", []).append(
+                cuda_ms(lambda: plain(*args), 5))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    bounds = {k: median_bound(v) for k, v in bounds.items()}
+    for k, name, _, _ in FETCH_KERNELS:
+        say(f"fetch: {k} {name} {med[k]:.4f} ms, plain "
+            f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
+            f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
+            f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
+    fetch_edge_cases(pa, errs)
+    del d, orig, rdev, row_sums
+    torch.cuda.empty_cache()
+    return med, errs, launches, bounds
 
 
 # ---------------------------------------------------------------------------
@@ -706,10 +1085,11 @@ def main(argv=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("dual_compare.cu (nvcc, sm_90a)", fk.load),
             ("window_compare.cu (nvcc, sm_90a)", fk.load_window),
+            ("window_staged.cu (nvcc, sm_90a)", fk.load_staged),
             ("host libraries (g++)", native.build_all))}
         done = {name: f.result() for name, f in builds.items()}
     say(f"build: {time.perf_counter() - t0:.2f} s in all: " + ", ".join(
@@ -738,7 +1118,7 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t1:.2f} s)")
 
         # ---- 4. kernels ------------------------------------------------
-        med, errs = kernel_phase(store, table)
+        med, errs, bounds = kernel_phase(store, table)
         golden_phase(tmp)
 
         # ---- 5. slice: the main path, with the launch counts ------------
@@ -814,24 +1194,34 @@ def main(argv=None) -> int:
 
         # ---- 7. the verify paths of bench_verify ------------------------
         t0 = time.perf_counter()
-        v_med, v_errs, v_launches = verify_paths_phase(fasta, min_ovl)
+        v_med, v_errs, v_launches, v_bounds, reuse = verify_paths_phase(
+            fasta, min_ovl)
         say(f"verify: phase {time.perf_counter() - t0:.2f} s")
 
+        # ---- 8. the fetch experiments -----------------------------------
+        t0 = time.perf_counter()
+        f_med, f_errs, f_launches, f_bounds = fetch_phase(*reuse)
+        del reuse
+        say(f"fetch: phase {time.perf_counter() - t0:.2f} s")
+
+    def entry(k, name, source, replaces, n, err, times, bd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": times[k], "plain_ms": times[k + "_plain"],
+                "bytes": bd["bytes"], "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "library_ms": None}
+
     kernels = [
-        {"name": "fused_compare_dual", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": med["K1"], "plain_ms": med["K1_plain"]},
-        {"name": "fused_compare_dual_fetch", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["K2"], "max_abs_err": errs["K2"],
-         "ms": med["K2"], "plain_ms": med["K2_plain"]},
-    ] + [
-        {"name": name, "route": "cuda", "source": WINDOW_SOURCE,
-         "replaces": replaces, "launches": v_launches[k],
-         "max_abs_err": v_errs[k], "ms": v_med[k],
-         "plain_ms": v_med[k + "_plain"]}
-        for k, name, replaces in SINGLE_KERNELS]
+        entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
+              launches["K1"], errs["K1"], med, bounds["K1"]),
+        entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE, K2_REPLACES,
+              launches["K2"], errs["K2"], med, bounds["K2"]),
+    ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs[k],
+               v_med, v_bounds[k])
+         for k, name, replaces in SINGLE_KERNELS] + [
+        entry(k, name, source, replaces, f_launches[k], f_errs[k], f_med,
+              f_bounds[k])
+        for k, name, replaces, source in FETCH_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

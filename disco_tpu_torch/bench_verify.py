@@ -22,12 +22,15 @@ The paths (PATHS), each with the table layout bench.py gives it:
     fused_mxu2  K4 with read2 gathered from the 17-word table
     fused_mxu3  fused_kernel.verify_windows_fused_mxu_both16 (K6) after the
                 BFS locality relabel over the full candidate graph; pairs
-                come out in relabeled order (`Workload.perm`)
+                come out in relabeled order (`Workload.perm`).  With reads
+                over 256 bp, fused_kernel.verify_windows_fused_mxu_both (K5)
+                over the 32-word pack_lines table, as bench.py:184-190
+                selects it; K5, like the reference, takes reads of at most
+                256 bp and raises there
 
 The TPU harness's span guard (which relabels a fused_mxu run as fused when
 read1's tile spans are wide) has no counterpart: the port's kernels have no
-span precondition.  `fused_mxu3` with reads over 256 bp needs K5, which is
-not ported, and raises.  The benchmark measures a card: --device must name a
+span precondition.  The benchmark measures a card: --device must name a
 CUDA device.  On the CPU the paths run their plain versions through
 tests/test_torch_bench_verify.py."""
 import argparse
@@ -157,12 +160,23 @@ PATHS = {
 RELABELED = ("fused_mxu3",)
 
 
+def route(path: str, n_words: int):
+    """(table layout, verify function) of `path` for reads of n_words
+    words: fused_mxu3 with reads over 256 bp takes K5 over the 32-word
+    table, as bench.py does."""
+    if path == "fused_mxu3" and n_words > fk.W16:
+        return _lines, fk.verify_windows_fused_mxu_both
+    return PATHS[path]
+
+
 @dataclass
 class Workload:
     """A candidate batch laid out for one path: its table (or tables) and
     the pair arrays in the order the path verifies them.  Pair i here is
-    pair perm[i] of the batch (perm is None: the batch's own order).
-    Arrays are numpy on the host, or tensors after `to`."""
+    pair perm[i] of the batch (perm is None: the batch's own order).  A
+    relabeled path keeps its relabeled (2N, Wp) rows, before their layout,
+    in `packed` (host numpy).  Arrays are numpy on the host, or tensors
+    after `to`."""
     path: str
     table: object
     rows1: object
@@ -172,6 +186,7 @@ class Workload:
     n: object
     n_words: int
     perm: Optional[np.ndarray] = None
+    packed: Optional[np.ndarray] = None
 
     def __len__(self):
         return len(self.rows1)
@@ -187,11 +202,12 @@ class Workload:
                             x, np.int32)).to(device)
                           for x in (self.rows1, self.rows2, self.o1,
                                     self.o2, self.n)),
-                        n_words=self.n_words, perm=self.perm)
+                        n_words=self.n_words, perm=self.perm,
+                        packed=self.packed)
 
     def verify(self, sl: slice = slice(None)):
         """The path's booleans for pairs `sl` of this workload."""
-        fn = PATHS[self.path][1]
+        fn = route(self.path, self.n_words)[1]
         return fn(self.table, self.rows1[sl], self.rows2[sl], self.o1[sl],
                   self.o2[sl], self.n[sl], n_words=self.n_words)
 
@@ -199,21 +215,16 @@ class Workload:
 def prepare(path: str, store, r1, rows2, o1, o2, n) -> Workload:
     """The workload of `path` over a candidate batch (candidate_batch's
     arrays), with bench.py's table preparation; for fused_mxu3 that is the
-    BFS relabel over the whole batch.  Raises for fused_mxu3 with reads over
-    256 bp, which need K5 (not ported)."""
-    layout, _ = PATHS[path]
+    BFS relabel over the whole batch."""
+    layout, _ = route(path, store.n_words)
     pa = np.concatenate([store.packed, store.packed_rc], axis=0)
-    perm = None
+    perm = relabeled = None
     if path in RELABELED:
-        if store.n_words > fk.W16:
-            raise NotImplementedError(
-                f"K5 not yet ported: {path} with reads over 256 bp "
-                f"(n_words = {store.n_words}) needs "
-                "verify_windows_fused_mxu_both")
         pa, r1, rows2, perm, _, o1, o2, n = relabel_workload(
             store.n_reads, pa, r1, rows2, o1, o2, n)
+        relabeled = pa
     return Workload(path, layout(pa), r1, rows2, o1, o2, n,
-                    n_words=store.n_words, perm=perm)
+                    n_words=store.n_words, perm=perm, packed=relabeled)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +246,18 @@ def device_ms(fn, min_seconds: float = 1.0) -> float:
             return ms
         reps = min(10_000, max(2 * reps,
                                int(1e3 * min_seconds / max(ms, 1e-3))))
+
+
+def cuda_device(name: str) -> torch.device:
+    """`name` as a CUDA device; raises for another device or without a
+    card (the measurements are of a card)."""
+    device = torch.device(name)
+    if device.type != "cuda":
+        raise ValueError(f"--device {name}: the measurement is of a CUDA "
+                         "card")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    return device
 
 
 def measure(path: str, batch, device) -> dict:
@@ -269,12 +292,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="a CUDA device (default cuda)")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type != "cuda":
-        raise ValueError(f"--device {args.device}: the benchmark measures a "
-                         "CUDA card")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    device = cuda_device(args.device)
     paths = list(PATHS) if args.path == "all" else [args.path]
     with tempfile.TemporaryDirectory(prefix="bench_verify_") as td:
         fasta = pathlib.Path(td) / "bench.fasta"

@@ -37,8 +37,10 @@
 //     sorted by read1 (and, after the locality relabel, read2 in a narrow
 //     band of rows per tile) put neighbouring threads on the same rows,
 //     which then hit in L1/L2.  A row index outside the table reads as a
-//     row of zeros.  Staging a tile's row window in shared memory is left
-//     for later.
+//     row of zeros.  window_staged.cu stages a tile's row window in shared
+//     memory instead (K5, T1, T3); K4's kernel here also serves T2
+//     (tools/exp_fetch_variants.py::verify_pipe_nc, K4's Pallas body
+//     without its guard).
 //
 // Each launcher is a plain C function: it launches on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().

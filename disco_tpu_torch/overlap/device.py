@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .fused_kernel import fused_compare_dual, fused_compare_dual_fetch
+from .relation import _default_device
 from .verify import as_words, make_packed_all
 
 _M32 = 0xFFFFFFFF
@@ -248,17 +249,19 @@ def device_overlap_dense32(packed, packed_all, lengths, starts, tmeta, keys,
 
 
 class DeviceOverlapEngine:
-    """Host wrapper: puts the read store and the table on `device` and
-    runs the dense overlap step over window chunks.
+    """Host wrapper: puts the read store and the table on `device` (default:
+    the CUDA card; without one it raises) and runs the dense overlap step
+    over window chunks.
 
     `fetch` selects the check: True runs K2, which reads read1's rows from
     packed_all; False runs K1 over gathered columns.  `stats` counts
     chunks; the caller adds the chunks it re-ran by an exact path."""
 
-    def __init__(self, store, table, device="cpu", fetch: bool = True):
+    def __init__(self, store, table, device=None, fetch: bool = True):
         self.store = store
         self.k = table.k
-        self.device = torch.device(device)
+        self.device = (torch.device(device) if device is not None
+                       else _default_device())
         self.packed = as_words(store.packed, self.device)
         self.packed_all = make_packed_all(store.packed, store.packed_rc,
                                           self.device)

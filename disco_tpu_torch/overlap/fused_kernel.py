@@ -33,6 +33,21 @@ The TPU versions need P to be a multiple of TILE, check a span guard and
 fall back through lax.cond; these take any P and have no guard, because a
 thread loads its own rows.  They return the same booleans.
 
+And in csrc/window_staged.cu, whose kernels read their rows from a window
+of rows staged in shared memory for each tile of TILE pairs:
+
+- `verify_windows_fused_mxu_both` (K5, TPU kernel `_mxu3_kernel`): both
+  rows from the `pack_lines` table (relabeled rows), compared over its
+  first W_CMP = 24 words; reads of at most 256 bp (n_words <= 16).  Each
+  tile stages 192 rows from its least read1 row and 384 from its least
+  read2 row (the TPU's window budgets).
+`load_staged` also serves the fetch-experiment kernels of
+disco_tpu_torch/tools (T1, T3).  A row outside its tile's window is read
+from device memory, so the result is exact for every input; the wrapper's
+`out_of_window` holds the count of such row reads of its last call (a
+tensor on the call's device; on the CPU, the count the kernel would give,
+from `window_misses`).
+
 Each wrapper checks its tensors and dispatches on where they lie: a CPU
 tensor goes to the plain version, a CUDA tensor to the kernel (or an
 error).  `launches` on each wrapper counts kernel launches."""
@@ -49,9 +64,12 @@ W32 = 32          # words per row of the pack_lines table
 NB_B = 6          # pack_lines headroom: 64-row blocks of the widest window
 W16 = 16          # words per row of the pack_lines16 table
 NB16_B = 7        # pack_lines16 headroom, in 64-row blocks
+W_CMP = 24        # words K5 compares of each 32-word row
+BOTH_ROWS = (192, 384)   # K5's staged rows per tile: read1, read2
 
 _LIB = None
 _WINDOW_LIB = None
+_STAGED_LIB = None
 
 
 def load():
@@ -90,6 +108,27 @@ def load_window():
             fn.restype = ctypes.c_int
         _WINDOW_LIB = lib
     return _WINDOW_LIB
+
+
+def load_staged():
+    """Build (nvcc, sm_90a) and load the staged-window kernels (K5, T1,
+    T3); returns the library."""
+    global _STAGED_LIB
+    if _STAGED_LIB is None:
+        lib = kernels.load_cuda("window_staged", deps=["window.cuh"])
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.disco_window_compare_staged_both.argtypes = (
+            [vp, i64, i32, i32, i32, vp, vp, i64] + [vp] * 6)
+        lib.disco_window_compare_staged.argtypes = (
+            [vp, i64, i32, i32, vp, i32, vp, i64] + [vp] * 6)
+        lib.disco_row_checksum_staged.argtypes = [vp, i64, i32, vp, i64, vp,
+                                                  i32, vp, vp, vp]
+        for fn in (lib.disco_window_compare_staged_both,
+                   lib.disco_window_compare_staged,
+                   lib.disco_row_checksum_staged):
+            fn.restype = ctypes.c_int
+        _STAGED_LIB = lib
+    return _STAGED_LIB
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +405,18 @@ def fused_compare_fetch(table, b, rows1, o1, o2, n):
     of read2's rows; rows1: (P,) int32 rows of read1 in `table`, best
     sorted (a row outside the table reads as zeros); o1/o2/n: (P,) int32
     window geometry.  Returns (P,) bool."""
+    ok, launched = compare_fetch(table, b, rows1, o1, o2, n)
+    fused_compare_fetch.launches += launched
+    return ok
+
+
+fused_compare_fetch.launches = 0
+
+
+def compare_fetch(table, b, rows1, o1, o2, n):
+    """`fused_compare_fetch` without its count, for the wrappers that run
+    the same kernel under their own (tools.exp_fetch_variants.verify_pipe_nc).
+    Returns (ok, whether the kernel was launched)."""
     if table.dim() != 2 or b.dim() != 2:
         raise ValueError(f"table {tuple(table.shape)} and b "
                          f"{tuple(b.shape)}: need (R, Wt) and (Wb, P)")
@@ -376,20 +427,16 @@ def fused_compare_fetch(table, b, rows1, o1, o2, n):
     if rows1.shape != (p,):
         raise ValueError(f"rows1 of shape {tuple(rows1.shape)}, not ({p},)")
     if dev.type == "cpu":
-        return fused_compare_fetch_plain(table, b, rows1, *geo)
+        return fused_compare_fetch_plain(table, b, rows1, *geo), False
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     if p == 0:
-        return ok
+        return ok, False
     with torch.cuda.device(dev):
         err = load_window().disco_window_compare_fetch(
             table.data_ptr(), n_rows, wt, b.data_ptr(), wb, rows1.data_ptr(),
             p, *(g.data_ptr() for g in geo), ok.data_ptr(), _stream(dev))
     _raise_on(err, "window_compare_fetch")
-    fused_compare_fetch.launches += 1
-    return ok
-
-
-fused_compare_fetch.launches = 0
+    return ok, True
 
 
 def verify_windows_fused_mxu(packed_lines, rows1, rows2, o1, o2, n, *,
@@ -449,3 +496,91 @@ def verify_windows_fused_mxu_both16(packed_lines16, rows1, rows2, o1, o2, n,
 
 
 verify_windows_fused_mxu_both16.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# staged row windows (csrc/window_staged.cu): K5 here, T1 and T3 in tools/
+# ---------------------------------------------------------------------------
+def tile_min_max(rows):
+    """Per-tile (TILE pairs, the last one partial) least and greatest row of
+    (P,) int64 `rows`: two (ceil(P / TILE),) int64 tensors."""
+    t = torch.arange(rows.numel(), device=rows.device) // TILE
+    nt = -(-rows.numel() // TILE)
+    lo = torch.full((nt,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                    device=rows.device).scatter_reduce(0, t, rows, "amin")
+    hi = torch.full((nt,), -1, dtype=torch.int64,
+                    device=rows.device).scatter_reduce(0, t, rows, "amax")
+    return lo, hi
+
+
+def window_misses(rows, first, last, cap, n_rows):
+    """The row reads a staged kernel makes outside its windows (window.cuh:
+    row_window): tile t of TILE pairs stages rows [max(first[t], 0),
+    min(first[t] + cap, last[t] + 1, n_rows)), and each of its rows outside
+    that range is read from device memory.  rows: (P,) int64; first/last:
+    (ceil(P / TILE),) int64.  Returns a 0-dim int64 tensor."""
+    t = torch.arange(rows.numel(), device=rows.device) // TILE
+    lo = first.clamp(min=0)
+    hi = torch.minimum(first + cap, last + 1).clamp(max=n_rows)
+    return ((rows < lo[t]) | (rows >= hi[t])).sum()
+
+
+def _both_misses(n_rows, rows1, rows2):
+    total = 0
+    for rows, cap in zip((rows1.long(), rows2.long()), BOTH_ROWS):
+        total = total + window_misses(rows, *tile_min_max(rows), cap, n_rows)
+    return total
+
+
+def verify_windows_fused_mxu_both_plain(packed_lines, rows1, rows2, o1, o2,
+                                        n, *, n_words):
+    """Plain version of `verify_windows_fused_mxu_both`: both rows gathered
+    from the 32-word table and cut to its first W_CMP words."""
+    table = packed_lines.view(-1, W32)[:, :W_CMP]
+    return window_check_plain(table[rows1.long()], table[rows2.long()], o1,
+                              o2, n)
+
+
+def verify_windows_fused_mxu_both(packed_lines, rows1, rows2, o1, o2, n, *,
+                                  n_words):
+    """verify_windows with both rows fetched inside the kernel from the
+    `pack_lines` table: packed_lines (L, 128) int32, viewed as 32-word rows
+    of which the first W_CMP = 24 are compared; rows1/rows2 (P,) int32 rows
+    of that table (after `relabel_workload`, a tile's rows lie in narrow
+    bands); o1/o2/n (P,) int32.  Like the reference it takes reads of at
+    most 256 bp only (n_words <= W_CMP - 8 = 16) and raises otherwise.
+    Returns (P,) bool; `out_of_window` then holds the row reads outside the
+    staged windows."""
+    _check_lines(packed_lines)
+    p = rows1.numel()
+    dev = _check((packed_lines,), (rows1, rows2, o1, o2, n), p)
+    fn = verify_windows_fused_mxu_both
+    if p == 0:
+        fn.out_of_window = torch.zeros((), dtype=torch.int64, device=dev)
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    if n_words > W_CMP - 8:
+        raise ValueError(f"n_words = {n_words}: K5 compares {W_CMP} words "
+                         f"and needs n_words <= {W_CMP - 8} (reads of at "
+                         "most 256 bp), as disco_tpu asserts")
+    table = packed_lines.view(-1, W32)
+    if dev.type == "cpu":
+        fn.out_of_window = _both_misses(table.shape[0], rows1, rows2)
+        return verify_windows_fused_mxu_both_plain(
+            packed_lines, rows1, rows2, o1, o2, n, n_words=n_words)
+    ok = torch.empty(p, dtype=torch.bool, device=dev)
+    misses = torch.zeros(1, dtype=torch.int64, device=dev)
+    ws = max(1, min(W_CMP, n_words + 1))     # the words a window can reach
+    with torch.cuda.device(dev):
+        err = load_staged().disco_window_compare_staged_both(
+            table.data_ptr(), table.shape[0], W32, W_CMP, ws,
+            rows1.data_ptr(), rows2.data_ptr(), p, o1.data_ptr(),
+            o2.data_ptr(), n.data_ptr(), ok.data_ptr(), misses.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "window_compare_staged_both")
+    fn.launches += 1
+    fn.out_of_window = misses[0]
+    return ok
+
+
+verify_windows_fused_mxu_both.launches = 0
+verify_windows_fused_mxu_both.out_of_window = None

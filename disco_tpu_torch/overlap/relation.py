@@ -113,7 +113,13 @@ def default_backend() -> str:
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card.  Without one this raises: the host runs the plain
+    versions only when the caller passes device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is "
+                           "false; pass device=\"cpu\" to run the kernels' "
+                           "plain versions on the host")
+    return torch.device("cuda")
 
 
 def compute_relation(store: ReadStore, table: FingerprintTable,
@@ -122,7 +128,7 @@ def compute_relation(store: ReadStore, table: FingerprintTable,
     """Verified overlap/containment relation over all read windows.
 
     backend="device": `_device_relation` on `device` (default: the CUDA
-    card when present).  Default when a card is present; below 2^20
+    card; without one it raises).  Default when a card is present; below 2^20
     windows the auto-selected device backend gives way to the native one.
 
     backend="native": the C++/OpenMP kernel (disco_tpu/native/overlap.cpp).

@@ -18,6 +18,7 @@ from disco_tpu.overlap import verify as jv
 from disco_tpu.overlap.locality import relabel_workload
 from disco_tpu_torch import bench_verify as bv
 from disco_tpu_torch.io.readstore import ReadStore
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers
@@ -98,6 +99,9 @@ def test_path_matches_jax(batches, path):
 
 
 def test_fused_mxu3_needs_k5_over_256_bp():
+    """fused_mxu3 with reads over 256 bp selects K5 over the 32-word table,
+    as bench.py:184-190 does, and fails where bench.py fails: K5 takes
+    n_words <= 16 (the reference asserts it)."""
     rng = np.random.default_rng(0)
     genome = "".join(rng.choice(list("ACGT"), 2000))
     seqs = [genome[s:s + 300] for s in rng.integers(0, 1700, 20)]
@@ -105,9 +109,18 @@ def test_fused_mxu3_needs_k5_over_256_bp():
     assert store.n_words > 16
     assert RefReadStore.from_sequences(seqs).n_words == store.n_words
     z = np.zeros(4, np.int32)
-    with pytest.raises(NotImplementedError, match="K5 not yet ported"):
-        bv.prepare("fused_mxu3", store, z, z, z, z, z)
-    bv.prepare("fused_mxu", store, z, z, z, z, z)       # the others run
+    layout, fn = bv.route("fused_mxu3", store.n_words)
+    assert fn is bv.fk.verify_windows_fused_mxu_both
+    wl = bv.prepare("fused_mxu3", store, z, z, z, z, z).to("cpu")
+    assert wl.table.shape[1] == 128
+    assert wl.packed.shape == (40, store.n_words + 1)
+    with pytest.raises(AssertionError):
+        jfk.verify_windows_fused_mxu_both(
+            jfk.pack_lines(wl.packed)[0], z, z, z, z, z,
+            n_words=store.n_words, interpret=True)
+    with pytest.raises(ValueError, match="n_words <= 16"):
+        wl.verify()
+    bv.prepare("fused_mxu", store, z, z, z, z, z).to("cpu").verify()
 
 
 def test_main_needs_a_card():

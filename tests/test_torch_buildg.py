@@ -13,6 +13,7 @@ from disco_tpu.io.readstore import ReadStore as RefStore
 from disco_tpu_torch.buildg.pipeline import run_buildg
 from disco_tpu_torch.index.table import FingerprintTable
 from disco_tpu_torch.io.readstore import ReadStore
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers

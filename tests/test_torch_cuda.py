@@ -1,6 +1,7 @@
 """The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
-K4, K6; overlap/pallas_kernel.py: K7) against their plain versions, on a
-CUDA card.  Tolerance: exact — the outputs are booleans.
+K4, K5, K6; overlap/pallas_kernel.py: K7; tools/exp_fetch_variants.py: T1,
+T2; tools/exp_mxu_fetch.py: T3) against their plain versions, on a CUDA
+card.  Tolerance: exact — the outputs are booleans and integers.
 
 This file imports neither jax nor disco_tpu, so it also runs where only
 PyTorch is installed:
@@ -16,6 +17,8 @@ from disco_tpu_torch.io.readstore import ReadStore
 from disco_tpu_torch.overlap import fused_kernel as port
 from disco_tpu_torch.overlap import pallas_kernel
 from disco_tpu_torch.overlap.verify import align_window, as_words
+from disco_tpu_torch.tools import exp_fetch_variants as fv
+from disco_tpu_torch.tools import exp_mxu_fetch as mf
 
 READ_LEN = 250
 
@@ -315,5 +318,129 @@ def test_single_kernels_on_empty_batch(cuda_device):
     packed_all, _, _, _ = _batch(seed=1, p=1)
     z = np.zeros(0, np.int64)
     for name, kern, args, _ in _single_cases(packed_all, z, z, z, z, z):
+        out = kern(*(_to(a, cuda_device) for a in args))
+        assert out.shape == (0,) and out.is_cuda, name
+
+
+# ---------------------------------------------------------------------------
+# the staged-window kernels: K5, T1, T3, and T2 (K4's kernel, own count)
+# ---------------------------------------------------------------------------
+def _staged_cases(packed_all, rows1, rows2, o1, o2, n):
+    """(name, wrapper, args) of K5, T1, T2 and T3 (both salts) over one
+    batch, all on the CPU."""
+    r1, r2, g = _t(rows1), _t(rows2), [_t(x) for x in (o1, o2, n)]
+    lines = as_words(port.pack_lines(packed_all)[0])
+    table = as_words(packed_all)
+    nw = packed_all.shape[1] - 1
+    bases = _t(rows1[::1024])
+    return [
+        ("K5", lambda *a: port.verify_windows_fused_mxu_both(*a, n_words=nw),
+         (lines, r1, r2, *g)),
+        ("T1", fv.verify_sync, (lines, table, r1, r2, *g)),
+        ("T2", fv.verify_pipe_nc, (lines, table, r1, r2, *g)),
+        ("T3", lambda *a: mf.fetch_checksum(*a, 0), (table, r1, bases)),
+        ("T3 salt 1", lambda *a: mf.fetch_checksum(*a, 1),
+         (table, r1, bases)),
+    ]
+
+
+def _staged(name):
+    return {"K5": port.verify_windows_fused_mxu_both, "T1": fv.verify_sync,
+            "T2": fv.verify_pipe_nc, "T3": mf.fetch_checksum}[name.split()[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,order", [(1, "sorted"), (2 * 1024, "sorted"),
+                                     (100_003, "sorted"),
+                                     (3001, "random")])
+def test_staged_kernels_match_plain(cuda_device, p, order):
+    """Every bit phase, n = 0, true matches, any P; sorted rows1, or random
+    rows1 whose tiles miss their windows.  The kernels' out-of-window counts
+    equal the counts of their windows' rule (window_misses), which the CPU
+    call gives."""
+    packed_all, rows1, rows2, geo = _batch(seed=19, p=p)
+    if order == "sorted":
+        perm = np.argsort(rows1, kind="stable")
+        rows1, rows2 = rows1[perm], rows2[perm]
+        geo = tuple(g[perm] for g in geo)
+    for name, kern, args in _staged_cases(packed_all, rows1, rows2,
+                                          *geo[:3]):
+        counter = _staged(name)
+        want = kern(*args)
+        want_missed = getattr(counter, "out_of_window", None)
+        before = counter.launches
+        got = kern(*(_to(a, cuda_device) for a in args))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, name
+        assert got.is_cuda and got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        if want_missed is not None:
+            missed = int(counter.out_of_window)
+            assert missed == int(want_missed), name
+            if order == "random":
+                assert missed > 0, name
+        if p > 1 and want.dtype == torch.bool:
+            assert want.any() and not want.all(), name
+
+
+@pytest.mark.cuda
+def test_staged_kernels_read_zeros_past_row_end(cuda_device):
+    """K5 compares the first 24 words of each 32-word row and T1/T2 the 32
+    words of theirs; a word past them reads as 0.  Rows of random words, so
+    that the words past the staged ones (ws = Wp) come from device memory;
+    the reference is the plain check over rows padded with two zero
+    words."""
+    rng = np.random.default_rng(23)
+    lines = rng.integers(0, 2 ** 32, (4 * 512 // 4, 128),
+                         dtype=np.uint64).astype(np.uint32)
+    table32 = lines.reshape(-1, 32)
+    p = 3001
+    rows1 = np.sort(rng.integers(0, len(table32), p))
+    rows1[-8:] = len(table32) - 1
+    rows2 = rng.integers(0, len(table32), p)
+    for name, w in (("K5", 24), ("T1", 32), ("T2", 32)):
+        same, (o1, o2, n, _, _) = _past_row_geometry(seed=23, p=p, wp=w)
+        r2 = np.where(same, rows1, rows2)
+        padded = np.zeros((len(table32), w + 2), np.uint32)
+        padded[:, :w] = table32[:, :w]
+        g = [_t(x) for x in (o1, o2, n)]
+        want = port.window_check_plain(as_words(padded[rows1]),
+                                       as_words(padded[r2]), *g)
+        assert want.any() and not want.all(), name
+        dev = [x.to(cuda_device) for x in (_t(rows1), _t(r2), *g)]
+        lines_d = as_words(lines, cuda_device)
+        if name == "K5":
+            got = port.verify_windows_fused_mxu_both(lines_d, *dev,
+                                                     n_words=16)
+        else:
+            fn = fv.verify_sync if name == "T1" else fv.verify_pipe_nc
+            got = fn(lines_d, as_words(table32, cuda_device), *dev)
+        torch.cuda.synchronize()
+        _assert_same([want], [got])
+
+
+@pytest.mark.cuda
+def test_checksum_wide_rows_and_rows_past_the_table(cuda_device):
+    """T3 over 400-word rows (51,328 B of staged rows: above the default
+    48 KB of shared memory) and rows past both ends of the table."""
+    rng = np.random.default_rng(29)
+    table = rng.integers(0, 2 ** 32, (300, 400), dtype=np.uint64).astype(
+        np.uint32)
+    rows = np.sort(rng.integers(-2, 302, 2 * 1024 + 5))
+    bases = rows[::1024]
+    for salt in (0, 1):
+        args = (as_words(table), _t(rows), _t(bases))
+        want = mf.fetch_checksum(*args, salt)
+        got = mf.fetch_checksum(*(a.to(cuda_device) for a in args), salt)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_staged_kernels_on_empty_batch(cuda_device):
+    packed_all, _, _, _ = _batch(seed=1, p=1)
+    z = np.zeros(0, np.int64)
+    for name, kern, args in _staged_cases(packed_all, z, z, z, z, z):
         out = kern(*(_to(a, cuda_device) for a in args))
         assert out.shape == (0,) and out.is_cuda, name

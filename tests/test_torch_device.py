@@ -13,6 +13,7 @@ from disco_tpu.overlap import device as ref
 from disco_tpu.overlap.relation import window_codes
 from disco_tpu_torch.convert import state_from_reference
 from disco_tpu_torch.overlap import device as port
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers
@@ -103,3 +104,12 @@ def test_flipped_keys_keep_unsigned_order():
     keys = np.array([0, 1, 2**62, 2**63 - 1, 2**63, 2**64 - 1], np.uint64)
     flipped = port.flip_keys(keys)
     assert (np.diff(flipped) > 0).all()
+
+
+def test_engine_needs_a_card_unless_told_cpu(mini, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store, table, _ = mini
+    state = state_from_reference(store, table)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        port.DeviceOverlapEngine(*state)
+    assert port.DeviceOverlapEngine(*state, device="cpu").device.type == "cpu"

@@ -11,6 +11,7 @@ from disco_tpu.io.readstore import ReadStore
 from disco_tpu.overlap import fused_kernel as ref
 from disco_tpu_torch.overlap import fused_kernel as port
 from disco_tpu_torch.overlap.verify import as_words
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers
@@ -236,6 +237,86 @@ def test_both16_matches_pallas(layout):
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any() and not want.all()
     assert port.verify_windows_fused_mxu_both16.launches == 0
+
+
+def _both_misses(rows1, rows2, n_rows):
+    """K5's row reads outside its windows: each tile of TILE pairs stages
+    192 rows from its least read1 row and 384 from its least read2 row."""
+    total = 0
+    for rows, cap in ((rows1, 192), (rows2, 384)):
+        first = np.minimum.reduceat(rows, np.arange(0, len(rows), TILE))
+        first = first[np.arange(len(rows)) // TILE]
+        total += int(((rows < first) | (rows >= np.minimum(first + cap,
+                                                           n_rows))).sum())
+    return total
+
+
+@pytest.mark.parametrize("layout", ["relabeled", "wide_span"])
+def test_both_matches_pallas(layout):
+    """K5 against verify_windows_fused_mxu_both in interpret mode, over a
+    relabeled workload of 200 reads (the Pallas kernel proper) and over an
+    unrelabeled one of 2000 reads, whose tile spans are too wide for it
+    (its in-graph fallback to K4), as tests/test_fused_kernel.py:209 does;
+    with the row reads the port's kernel would make outside its windows."""
+    from disco_tpu.overlap.locality import relabel_workload
+
+    _, store, packed_all, rows1, rows2, o1, o2, n = _single(
+        seed=53, p=4096, n_reads=200 if layout == "relabeled" else 2000)
+    rows1 = np.sort(rows1)
+    args = (rows1, rows2, o1, o2, n)
+    want = np.asarray(ref.verify_windows_fused_mxu_both(
+        ref.pack_lines(packed_all)[0], *args, n_words=store.n_words,
+        interpret=True))
+    table = packed_all
+    if layout == "relabeled":
+        table, *args, perm, _, o1p, o2p, n_p = relabel_workload(
+            store.n_reads, packed_all, rows1, rows2, o1, o2, n)
+        args = [args[0], args[1], o1p, o2p, n_p]
+        want_p = np.asarray(ref.verify_windows_fused_mxu_both(
+            ref.pack_lines(table)[0], *args, n_words=store.n_words,
+            interpret=True))
+        np.testing.assert_array_equal(want_p, want[perm])
+        want = want_p
+    lines = port.pack_lines(table)[0]
+    got = port.verify_windows_fused_mxu_both(
+        as_words(lines), *_ints(*args), n_words=store.n_words)
+    assert got.dtype == torch.bool and got.shape == (4096,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+    assert port.verify_windows_fused_mxu_both.launches == 0
+    misses = _both_misses(np.asarray(args[0], np.int64),
+                          np.asarray(args[1], np.int64), len(lines) * 4)
+    assert int(port.verify_windows_fused_mxu_both.out_of_window) == misses
+    assert misses > 0 or layout == "relabeled"
+
+
+def test_both_takes_reads_of_at_most_256_bp():
+    """K5 fails where the reference asserts: n_words > W_CMP - 8 = 16."""
+    _, store, packed_all, *_ = _single(seed=7, p=64)
+    lines = port.pack_lines(packed_all)[0]
+    one = np.zeros(1, np.int32)
+    with pytest.raises(AssertionError):
+        ref.verify_windows_fused_mxu_both(lines, *[one] * 5, n_words=17,
+                                          interpret=True)
+    with pytest.raises(ValueError, match="n_words <= 16"):
+        port.verify_windows_fused_mxu_both(as_words(lines), *_ints(*[one] * 5),
+                                           n_words=17)
+    got = port.verify_windows_fused_mxu_both(as_words(lines),
+                                             *_ints(*[one] * 5), n_words=16)
+    assert got.tolist() == [True]
+    # an empty batch returns before the check, as the reference does, and
+    # leaves no count of an earlier call behind
+    far = np.array([0, len(lines) * 4 - 1], np.int32)
+    port.verify_windows_fused_mxu_both(as_words(lines), *_ints(far, far),
+                                       *_ints(*[far * 0] * 3), n_words=16)
+    assert int(port.verify_windows_fused_mxu_both.out_of_window) > 0
+    none = np.zeros(0, np.int32)
+    assert np.asarray(ref.verify_windows_fused_mxu_both(
+        lines, *[none] * 5, n_words=17, interpret=True)).shape == (0,)
+    got = port.verify_windows_fused_mxu_both(as_words(lines),
+                                             *_ints(*[none] * 5), n_words=17)
+    assert got.shape == (0,)
+    assert int(port.verify_windows_fused_mxu_both.out_of_window) == 0
 
 
 def test_pack_lines_equal():

@@ -4,6 +4,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "disco_tpu_torch"
 
@@ -29,7 +31,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("overlap.fused_kernel", "overlap.pallas_kernel",
-              "overlap.locality", "bench_verify"):
+              "overlap.locality", "bench_verify", "tools.exp_fetch_variants",
+              "tools.exp_mxu_fetch", "tools.exp_locality"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -85,16 +88,26 @@ def test_cli_unported_options_raise():
     assert res.returncode == 0, res.stderr
 
 
-def test_bench_verify_help_without_jax():
+def _help(module):
     code = ("import runpy, sys\n"
-            "sys.argv = ['bench_verify', '--help']\n"
+            f"sys.argv = ['{module}', '--help']\n"
             "try:\n"
-            "    runpy.run_module('disco_tpu_torch.bench_verify',\n"
-            "                     run_name='__main__')\n"
+            f"    runpy.run_module('{module}', run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    assert e.code == 0, e.code\n"
             "assert 'jax' not in sys.modules\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+def test_bench_verify_help_without_jax():
+    out = _help("disco_tpu_torch.bench_verify")
     for opt in ("--path", "--genome-len", "--device", "fused_mxu3"):
-        assert opt in res.stdout
+        assert opt in out
+
+
+@pytest.mark.parametrize("tool", ["exp_fetch_variants", "exp_mxu_fetch",
+                                  "exp_locality"])
+def test_tool_help_without_jax(tool):
+    assert "--device" in _help(f"disco_tpu_torch.tools.{tool}")

@@ -16,6 +16,7 @@ from disco_tpu_torch import native
 from disco_tpu_torch.io import fasta, readqc
 from disco_tpu_torch.utils import dna
 from test_native_readqc import _adversarial_reads, _blob
+from test_torch_native import private_native  # noqa: F401
 
 
 @pytest.mark.parametrize("min_ovl", [30, 40])

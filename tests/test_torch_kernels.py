@@ -78,12 +78,14 @@ def test_kernel_loaders_name_their_headers(monkeypatch):
         raise _Stop
 
     monkeypatch.setattr(kernels, "_build", fake_build)
-    for attr, loader in (("_LIB", fk.load), ("_WINDOW_LIB", fk.load_window)):
+    for attr, loader in (("_LIB", fk.load), ("_WINDOW_LIB", fk.load_window),
+                         ("_STAGED_LIB", fk.load_staged)):
         monkeypatch.setattr(fk, attr, None)
         with pytest.raises(_Stop):
             loader()
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sorted(seen) == sources == ["dual_compare.cu", "window_compare.cu"]
+    assert sorted(seen) == sources == ["dual_compare.cu", "window_compare.cu",
+                                       "window_staged.cu"]
     for name, deps in seen.items():
         assert '#include "window.cuh"' in (kernels.CSRC / name).read_text()
         assert kernels.CSRC / "window.cuh" in deps

@@ -16,6 +16,7 @@ from disco_tpu.io.readstore import ReadStore
 from disco_tpu.overlap.relation import compute_relation as ref_relation
 from disco_tpu_torch.convert import state_from_reference
 from disco_tpu_torch.overlap import relation as port
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers
@@ -93,3 +94,16 @@ def test_default_backend_env(monkeypatch):
     monkeypatch.delenv(port.BACKEND_ENV)
     want = "device" if torch.cuda.is_available() else "native"
     assert port.default_backend() == want
+
+
+def test_device_backends_need_a_card(mini, monkeypatch):
+    """With no device named, the device and xla backends take the CUDA
+    card; without one they raise instead of running the plain versions on
+    the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (store, table), _ = mini
+    for backend in ("device", "xla"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            port.compute_relation(store, table, backend=backend)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        port._device_relation(store, table)

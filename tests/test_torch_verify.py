@@ -9,6 +9,7 @@ import torch
 from disco_tpu.io.readstore import ReadStore
 from disco_tpu.overlap import verify as ref
 from disco_tpu_torch.overlap import verify as port
+from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
 # each keeps torch from spinning against the other workers
