@@ -8,7 +8,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
 1. card: fail unless torch sees a CUDA card; print its name and power
    limit, and the torch and CUDA versions;
 2. build: the CUDA kernels (nvcc, sm_90a) and the C++ host libraries (g++)
-   from the checkout's sources, timed;
+   from the checkout's sources, timed, and `ptxas -v`'s registers, shared
+   memory and spills for K3's and K4's tiled kernels, with their tiles,
+   stages and blocks at the main path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
    genome, 30x, 250 bp paired reads, 500 bp insert, seed 42);
    MinOverlap4BuildGraph from the shipped cfg (30);
@@ -42,10 +44,17 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    every live window matches) and with read2's window moved one base on
    every other pair (mismatches), and each slice's booleans must equal
    the plain verify_windows on the same pairs; the counts are read right
-   after and each must be above 0.  Then each kernel against its plain
+   after and each must be above 0, and the counts of K3's and K4's
+   controls (the one-thread-a-pair kernels they had before their columns
+   were tiled, `_direct`) must be 0.  Then each kernel against its plain
    version, timed by CUDA events at P = 2^22 (the median over 5 spread
-   slices), each path's pairs/s, and an edge-case batch (every bit phase,
-   n = 0, P = 1 and 3001, windows past the row, K7's over-long windows);
+   slices; K3 and K4 in turns with their controls, plain, control, kernel,
+   kernel, control, as made and moved apart, the controls held to the
+   plain version too), each path's pairs/s, and edge-case batches (every
+   bit phase, n = 0 and a whole tile of it, P = 1, 31, 255, 256, 257,
+   3001, 2^16 + 5 and past the tiled kernels' ring, K3 on rows of 2, 17
+   and 32 words, K4 with Wb = 17 and 32 and rows1 sorted and not, windows
+   past the row, K7's over-long windows);
 8. fetch experiments (`python -m disco_tpu_torch.tools.exp_fetch_variants`
    and `exp_mxu_fetch`) on phase 7's batch and relabel: with the K5, T1,
    T2 and T3 launch counts set to 0, K5 over the relabeled 32-word table
@@ -56,7 +65,8 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    T3 (`fetch_checksum`) over the r1-sorted tiles with salt 0 and 1, equal
    to the tool's numpy checksum.  The counts are read right after and each
    must be above 0.  Then each kernel against its plain version, timed at
-   P = 2^22, its out-of-window row reads, and edge-case batches (every bit
+   P = 2^22 (T2 in turns with K4's control), its out-of-window row reads,
+   and edge-case batches (every bit
    phase, n = 0, P = 1 and 3001, rows outside every window, windows past
    the row).
 
@@ -66,7 +76,11 @@ over 67e12 a second (the H100 SXM figures of NVIDIA's data sheet).  Its
 bytes are counted from the inputs it was timed on: 12 B of window geometry
 a pair (20 B for the dual check), each row index, each output, the words
 each window spans in a column input, and each distinct row a fetch kernel
-reads (its Wp = n_words + 1 data words), each once.  No single PyTorch call
+reads (its Wp = n_words + 1 data words), each once.  K3, K4 and T2 also
+carry a sector floor: what a kernel must read at the card's 32-B sector
+granularity, the column inputs' sectors that some window of each group of 8
+neighbouring pairs reads, plus the same geometry, indices and outputs and
+the fetched rows in whole sectors, over 3.35 TB/s.  No single PyTorch call
 computes a packed-window compare or the checksum, so `library_ms` is null.
 
 With --profile, one more device relation runs under cProfile and
@@ -233,9 +247,44 @@ def window_bound(p, col_words, fetched_bytes, index_bytes, n, geo_bytes=12,
     return bound(nbytes, 5 * n)
 
 
-def median_bound(bounds):
-    """The bound of the median-bytes slice of several."""
-    return sorted(bounds, key=lambda b: b["bytes"])[len(bounds) // 2]
+def column_sectors(o, n, words, group=8):
+    """The 32-B sectors of a (words, P) int32 column input that some window
+    of each group of 8 neighbouring pairs reads (the words window_equal_at
+    reads, `fused_kernel.read_words`): the least any kernel reads of the
+    input at the card's sector granularity, for P a multiple of 8."""
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    first, last = fk.read_words(o, n, words)
+    w = torch.arange(words, device=first.device)
+    reads = (w >= first[:, None]) & (w <= last[:, None])
+    pad = (-len(first)) % group
+    if pad:
+        reads = torch.cat([reads, reads.new_zeros((pad, words))])
+    return int(reads.view(-1, group, words).any(1).sum())
+
+
+def sector_floor(p, sectors, fetched_bytes, index_bytes, geo_bytes=12,
+                 out_bytes=1):
+    """{sector_bytes, sector_floor_ms}: the column inputs' read sectors
+    (`column_sectors`), per pair its geometry, row indices and output, and
+    the fetched rows' bytes, over the card's memory rate.  Beside the bound,
+    which counts the words the windows span: the floor says what reading
+    whole sectors costs on top."""
+    nbytes = 32 * sectors + p * (geo_bytes + index_bytes + out_bytes) + \
+        fetched_bytes
+    return {"sector_bytes": int(nbytes),
+            "sector_floor_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def fetched_sectors(wp, rows):
+    """The bytes of the distinct table rows a fetch kernel reads, each row's
+    wp data words rounded up to whole 32-B sectors."""
+    return 32 * (-(-4 * wp // 32)) * distinct(rows)
+
+
+def median_bound(bounds, key="bytes"):
+    """The bound of the median-`key` slice of several."""
+    return sorted(bounds, key=lambda b: b[key])[len(bounds) // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +531,12 @@ def single_kernels():
             "K7": pk.compare_windows}
 
 
+def direct_controls():
+    """id -> wrapper of the one-thread-a-pair controls of K3 and K4."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    return {"K3": fk.fused_compare_direct, "K4": fk.fused_compare_fetch_direct}
+
+
 def kernel_inputs(wls, sl):
     """Each single-check kernel's wrapper, plain version and arguments at
     pairs `sl` of its path's workload: K3 on fused's gathered columns, K4
@@ -537,11 +592,58 @@ def single_bound(k, args, wp):
                                  ).sum(), 0, 0, compared_words(nn))
 
 
+def column_floor(k, args, wp):
+    """The sector floor of K3 (k "K3": `kernel_inputs` args a, b, o1, o2,
+    n) or of K4's kernel (table, b, rows1, o1, o2, n; T2's too)."""
+    if k == "K3":
+        a, _, o1, o2, n = args
+        return sector_floor(len(n), column_sectors(o1, n, a.shape[0])
+                            + column_sectors(o2, n, a.shape[0]), 0, 0)
+    _, b, r1, _, o2, n = args
+    return sector_floor(len(n), column_sectors(o2, n, b.shape[0]),
+                        fetched_sectors(wp, r1), 4)
+
+
+def time_turns(kern, control, plain, reps=20):
+    """CUDA-event times in turns: plain (when given), control, kernel,
+    kernel, control.  Returns (kernel ms, control ms, plain ms or None), the
+    first two the means of their two turns."""
+    plain_ms = cuda_ms(plain, 5) if plain is not None else None
+    c1, k1, k2, c2 = (cuda_ms(f, reps) for f in (control, kern, kern,
+                                                  control))
+    return (k1 + k2) / 2, (c1 + c2) / 2, plain_ms
+
+
+def edge_pairs(rng, n_rows, w, p):
+    """Edge-case geometry over rows of w words: every bit phase of both
+    offsets, windows ending inside the row (before word w - 1), n = 0 on
+    every seventh pair and on the whole second tile of 256 pairs, true
+    matches on every fourth pair; rows1 sorted.  Returns (rows1, rows2, o1,
+    o2, n), numpy arrays."""
+    import numpy as np
+    i = np.arange(p)
+    rows1 = np.sort(rng.integers(0, n_rows, p))
+    same = i % 4 == 0
+    rows2 = np.where(same, rows1, rng.integers(0, n_rows, p))
+    end = 16 * (w - 1)
+    o1 = rng.integers(0, end, p) & ~15 | (i & 15)
+    o2 = np.where(same, o1, rng.integers(0, end, p) & ~15 | (i >> 4) & 15)
+    n = np.minimum(end - np.maximum(o1, o2), rng.integers(0, 300, p))
+    n[::7] = 0
+    n[256:512] = 0
+    return rows1, rows2, o1, o2, n
+
+
 def single_edge_cases(pa, errs, seed=3):
-    """Every bit phase of both offsets, n = 0, true matches, P = 1 and
-    3001, over the batch's packed table; windows up to one word past the
-    row (K3, K4, K6 against the plain check over rows padded with two zero
-    words); K7 windows longer than its W compared words."""
+    """Every bit phase of both offsets, n = 0 (and a whole tile of it),
+    true matches, P = 1, 31, 255, 256, 257, 3001, 2^16 + 5 and past the
+    tiled kernels' ring (more tiles than blocks x stages), over the batch's
+    packed table, rows1 sorted and (K4) not; K3 on random rows of 2, 17 and
+    32 words, K4 with read2's columns of 17 (the packed table) and 32 words
+    (the line table); windows up to one word past the row (K3, K4, K6
+    against the plain check over rows padded with two zero words); K7
+    windows longer than its W compared words.  The controls of K3 and K4
+    (`_direct`) take the same cases."""
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -565,25 +667,31 @@ def single_edge_cases(pa, errs, seed=3):
                         "edge-case pairs")
         errs[name] = max(errs.get(name, 0), err)
 
-    for p in (1, 3001):
-        i = np.arange(p)
-        rows1 = np.sort(rng.integers(0, n_rows, p))
-        rows2 = np.where(i % 4 == 0, rows1, rng.integers(0, n_rows, p))
-        o1 = rng.integers(0, 16 * (wp - 2), p) & ~15 | (i & 15)
-        o2 = np.where(i % 4 == 0, o1,
-                      rng.integers(0, 16 * (wp - 2), p) & ~15 | (i >> 4) & 15)
-        n = np.minimum(16 * (wp - 1) - np.maximum(o1, o2),
-                       rng.integers(0, 300, p))
-        n[::7] = 0
+    def ring(w, table_words):
+        tile, blocks, stages = fk.tiled_shape(w, table_words, 1 << 40)
+        return blocks * stages * tile + 5
+
+    sizes = [1, 31, 255, 256, 257, 3001, (1 << 16) + 5,
+             max(ring(wp, 0), ring(32, 32), ring(wp, 32))]
+    for p in sizes:
+        rows1, rows2, o1, o2, n = edge_pairs(rng, n_rows, wp, p)
         r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
         cols = [pa[r.long()].T.contiguous() for r in (r1, r2)]
-        run("K3", fk.fused_compare(*cols, *g),
-            fk.fused_compare_plain(*cols, *g))
-        for tables in (lines[32], (lines[32], pa)):
-            run("K4", fk.verify_windows_fused_mxu(tables, r1, r2, *g,
-                                                  n_words=wp - 1),
-                fk.verify_windows_fused_mxu_plain(tables, r1, r2, *g,
-                                                  n_words=wp - 1))
+        want = fk.fused_compare_plain(*cols, *g)
+        run("K3", fk.fused_compare(*cols, *g), want)
+        run("K3_direct", fk.fused_compare_direct(*cols, *g), want)
+        perm = torch.from_numpy(rng.permutation(p)).to(DEVICE)
+        for order, (q1, q2, gg) in (("sorted", (r1, r2, g)),
+                                    ("random", (r1[perm], r2[perm],
+                                                [x[perm] for x in g]))):
+            for tables in (lines[32], (lines[32], pa)):
+                args = (*fk._mxu_tables(tables, q2), q1, *gg)
+                want = fk.fused_compare_fetch_plain(*args)
+                run("K4", fk.verify_windows_fused_mxu(tables, q1, q2, *gg,
+                                                      n_words=wp - 1), want)
+                run("K4_direct", fk.fused_compare_fetch_direct(*args), want)
+        if p > 1 << 16:
+            continue            # K6 and K7 have no tiles: two sizes suffice
         run("K6", fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
                                                      n_words=wp - 1),
             fk.verify_windows_fused_mxu_both16_plain(lines[16], r1, r2, *g,
@@ -595,6 +703,20 @@ def single_edge_cases(pa, errs, seed=3):
         for nn in (g[2], n_long):
             run("K7", pk.compare_windows(*word, *bits, nn),
                 pk.compare_windows_plain(*word, *bits, nn))
+    # K3 and its control over random rows of 2, 17 and 32 words
+    for w in (2, 17, 32):
+        table = torch.from_numpy(rng.integers(
+            0, 2 ** 32, (4096, w), dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).to(DEVICE)
+        for p in (3001, ring(w, 0)):
+            rows1, rows2, o1, o2, n = edge_pairs(rng, 4096, w, p)
+            cols = [table[t(r).long()].T.contiguous() for r in (rows1, rows2)]
+            g = [t(x) for x in (o1, o2, n)]
+            want = fk.fused_compare_plain(*cols, *g)
+            check(bool(want.any()) and not bool(want.all()),
+                  f"K3 batch of {w}-word rows: all one answer")
+            run("K3", fk.fused_compare(*cols, *g), want)
+            run("K3_direct", fk.fused_compare_direct(*cols, *g), want)
     # past the row: K3 on packed_all, K4 and K6 on their line tables
     for name, table in (("K3", pa), ("K4", lines[32].view(-1, 32)),
                         ("K6", lines[16].view(-1, 16))):
@@ -608,18 +730,24 @@ def single_edge_cases(pa, errs, seed=3):
                                      *g)
         check(bool(want.any()), f"{name} past-row batch has no match")
         if name == "K3":
-            got = fk.fused_compare(table[r1.long()].T.contiguous(),
-                                   table[r2.long()].T.contiguous(), *g)
+            cols = [table[r.long()].T.contiguous() for r in (r1, r2)]
+            got = fk.fused_compare(*cols, *g)
+            run("K3_direct", fk.fused_compare_direct(*cols, *g), want)
         elif name == "K4":
             got = fk.verify_windows_fused_mxu(lines[32], r1, r2, *g,
                                               n_words=wp - 1)
+            run("K4_direct", fk.fused_compare_fetch_direct(
+                *fk._mxu_tables(lines[32], r2), r1, *g), want)
         else:
             got = fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
                                                      n_words=wp - 1)
         run(name, got, want)
-    say("verify: edge-case batches (P = 1 and 3001, every bit phase, n = 0, "
-        "K4 in both table forms, K7 windows longer than its words, windows "
-        "up to one word past the row): K3, K4, K6, K7 == plain")
+    say(f"verify: edge-case batches (P = {', '.join(map(str, sizes))}; "
+        "every bit phase, n = 0 and a tile of n = 0, K4 in both table forms "
+        "(Wb = 32 and 17) with rows1 sorted and not, K3 on rows of 2, 17 "
+        "and 32 words, K7 windows longer than its words, windows up to one "
+        "word past the row): K3, K4, their _direct controls, K6, K7 == "
+        "plain")
 
 
 def verify_paths_phase(fasta, min_ovl):
@@ -676,9 +804,10 @@ def verify_paths_phase(fasta, min_ovl):
     del base
 
     kern = single_kernels()
-    for k in kern.values():
+    controls = direct_controls()
+    for k in (*kern.values(), *controls.values()):
         k.launches = 0
-    on_card = {}
+    on_card, moved_card = {}, {}
     for path, wl in wls.items():
         t0 = time.perf_counter()
         dwl = wl.to(DEVICE)
@@ -688,6 +817,8 @@ def verify_paths_phase(fasta, min_ovl):
         for moved in (0, 1):
             mwl = (dataclasses.replace(dwl, o2=dwl.o2 + shift) if moved
                    else dwl)
+            if moved and path in ("fused", "fused_mxu"):
+                moved_card[path] = mwl      # K3's and K4's timed inputs
             for sl in slices:
                 got = mwl.verify(sl)
                 ref = (want[moved][sl] if perm is None
@@ -710,47 +841,81 @@ def verify_paths_phase(fasta, min_ovl):
         f"{k} {n}" for k, n in launches.items()))
     for k, n in launches.items():
         check(n > 0, f"the verify paths never launched {k}")
+    for k, f in controls.items():
+        check(f.launches == 0, f"the verify paths launched {k}'s control")
 
-    # each kernel against its plain version, and the times, at P = 2^22
+    # each kernel against its plain version, and the times, at P = 2^22;
+    # K3 and K4 in turns with their controls, as made and moved
     full = [sl for sl in slices if sl.stop - sl.start == VERIFY_SLICE]
     picks = [full[int(i)] for i in
              sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
     times = {}
     errs = {}
     bounds = {}
+    floors = {}
     path_ms = {path: [] for path in on_card}
+    wp = store.n_words + 1
     for sl in picks:
-        for k, (fn, plain, args, kw) in kernel_inputs(on_card, sl).items():
-            bounds.setdefault(k, []).append(
-                single_bound(k, args, store.n_words + 1))
-            got, ref = fn(*args, **kw), plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = max_abs_err([got], [ref])
-            check(err == 0, f"{k} disagrees with its plain version on "
-                            f"{int((got != ref).sum())} pairs of slice "
-                            f"{sl.start}:{sl.stop}")
-            errs[k] = max(errs.get(k, 0), err)
-            times.setdefault(k, []).append(cuda_ms(lambda: fn(*args, **kw),
-                                                   20))
-            times.setdefault(k + "_plain", []).append(
-                cuda_ms(lambda: plain(*args, **kw), 5))
+        made = kernel_inputs(on_card, sl)
+        moved = kernel_inputs({**on_card, **moved_card}, sl)
+        for k, (fn, plain, args, kw) in made.items():
+            bounds.setdefault(k, []).append(single_bound(k, args, wp))
+            control = controls.get(k)
+            if control is not None:
+                floors.setdefault(k, []).append(column_floor(k, args, wp))
+            for tag, a in (("", args), ("_moved", moved[k][2])):
+                if control is None and tag:
+                    continue
+                ref = plain(*a, **kw)
+                for name, f in ((k, fn), (k + "_direct", control)):
+                    if f is None:
+                        continue
+                    got = f(*a, **kw)
+                    torch.cuda.synchronize()
+                    err = max_abs_err([got], [ref])
+                    check(err == 0, f"{name} disagrees with its plain "
+                                    f"version on {int((got != ref).sum())} "
+                                    f"pairs of slice {sl.start}:{sl.stop}"
+                                    f"{tag}")
+                    errs[name] = max(errs.get(name, 0), err)
+                if control is None:
+                    times.setdefault(k, []).append(
+                        cuda_ms(lambda: fn(*a, **kw), 20))
+                    times.setdefault(k + "_plain", []).append(
+                        cuda_ms(lambda: plain(*a, **kw), 5))
+                    continue
+                k_ms, c_ms, p_ms = time_turns(
+                    lambda: fn(*a), lambda: control(*a),
+                    None if tag else (lambda: plain(*a)))
+                times.setdefault(k + tag, []).append(k_ms)
+                times.setdefault(k + "_direct" + tag, []).append(c_ms)
+                if p_ms is not None:
+                    times.setdefault(k + "_plain", []).append(p_ms)
         for path, dwl in on_card.items():
             path_ms[path].append(cuda_ms(lambda: dwl.verify(sl), 10))
     med = {k: statistics.median(v) for k, v in times.items()}
     bounds = {k: median_bound(v) for k, v in bounds.items()}
+    floors = {k: median_bound(v, "sector_bytes") for k, v in floors.items()}
     for k, name, _ in SINGLE_KERNELS:
         say(f"verify: {k} {name} {med[k]:.4f} ms, plain "
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
+        if k in floors:
+            say(f"verify: {k} in turns with its control: tiled "
+                f"{med[k]:.4f} ms (moved {med[k + '_moved']:.4f}), direct "
+                f"{med[k + '_direct']:.4f} ms (moved "
+                f"{med[k + '_direct_moved']:.4f}); sector floor "
+                f"{floors[k]['sector_bytes']} B, "
+                f"{floors[k]['sector_floor_ms']:.4f} ms")
     for path, ms in path_ms.items():
         m = statistics.median(ms)
         say(f"verify: path {path}: {m:.4f} ms per {VERIFY_SLICE} pairs, "
             f"{VERIFY_SLICE / (m / 1e3):.4e} pairs/s")
     single_edge_cases(on_card["fused"].table, errs)
-    del on_card
+    del on_card, moved_card
     torch.cuda.empty_cache()
-    return med, errs, launches, bounds, (batch, wls, want, odd)
+    return med, errs, launches, bounds, floors, (batch, wls, want, odd)
 
 
 # ---------------------------------------------------------------------------
@@ -968,31 +1133,54 @@ def fetch_phase(batch, wls, want, odd):
     full = [sl for sl in slices if sl.stop - sl.start == VERIFY_SLICE]
     picks = [full[int(i)] for i in
              sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
-    times, errs, bounds = {}, {}, {}
+    times, errs, bounds, floors = {}, {}, {}, {}
+    # T2 runs K4's kernel: its control is K4's
+    controls = {"T2": fk.fused_compare_fetch_direct}
     for sl in picks:
         for k, (fn, plain, args, bd) in fetch_inputs(d, sl, wp).items():
-            got, ref = fn(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            check(err == 0, f"{k} disagrees with its plain version on "
-                            f"{int((got != ref).sum())} pairs of slice "
-                            f"{sl.start}:{sl.stop}")
-            errs[k] = max(errs.get(k, 0), err)
+            ref = plain(*args)
+            control = controls.get(k)
+            for name, f in ((k, fn), (k + "_direct", control)):
+                if f is None:
+                    continue
+                got = f(*args)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                check(err == 0, f"{name} disagrees with its plain version "
+                                f"on {int((got != ref).sum())} pairs of "
+                                f"slice {sl.start}:{sl.stop}")
+                errs[name] = max(errs.get(name, 0), err)
             bounds.setdefault(k, []).append(bd)
-            times.setdefault(k, []).append(cuda_ms(lambda: fn(*args), 20))
-            times.setdefault(k + "_plain", []).append(
-                cuda_ms(lambda: plain(*args), 5))
+            if control is None:
+                times.setdefault(k, []).append(cuda_ms(lambda: fn(*args),
+                                                       20))
+                times.setdefault(k + "_plain", []).append(
+                    cuda_ms(lambda: plain(*args), 5))
+                continue
+            floors.setdefault(k, []).append(column_floor(k, args, wp))
+            k_ms, c_ms, p_ms = time_turns(lambda: fn(*args),
+                                          lambda: control(*args),
+                                          lambda: plain(*args))
+            times.setdefault(k, []).append(k_ms)
+            times.setdefault(k + "_direct", []).append(c_ms)
+            times.setdefault(k + "_plain", []).append(p_ms)
     med = {k: statistics.median(v) for k, v in times.items()}
     bounds = {k: median_bound(v) for k, v in bounds.items()}
+    floors = {k: median_bound(v, "sector_bytes") for k, v in floors.items()}
     for k, name, _, _ in FETCH_KERNELS:
         say(f"fetch: {k} {name} {med[k]:.4f} ms, plain "
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
+        if k in floors:
+            say(f"fetch: {k} in turns with its control: tiled "
+                f"{med[k]:.4f} ms, direct {med[k + '_direct']:.4f} ms; "
+                f"sector floor {floors[k]['sector_bytes']} B, "
+                f"{floors[k]['sector_floor_ms']:.4f} ms")
     fetch_edge_cases(pa, errs)
     del d, orig, rdev, row_sums
     torch.cuda.empty_cache()
-    return med, errs, launches, bounds
+    return med, errs, launches, bounds, floors
 
 
 # ---------------------------------------------------------------------------
@@ -1047,6 +1235,43 @@ def profile_phase(store, table, top=8):
         say(f"profile: host {ct:.3f} s cumulative in {nc} x {where}")
 
 
+def ptxas_report(source, names):
+    """{kernel: (registers, static shared bytes, spill store bytes, spill
+    load bytes)} of the named kernels of csrc/<source>, from `ptxas -v` on
+    a compile with kernels.load_cuda's target and flags (to a cubin that is
+    discarded)."""
+    import re
+    from disco_tpu_torch import kernels
+    res = subprocess.run(
+        [kernels.nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-cubin",
+         "-Xptxas", "-v", "-o", os.devnull, str(kernels.CSRC / source)],
+        check=True, capture_output=True, text=True)
+    out, fn = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            k = re.search(r"(window_[a-z_]*_kernel)", m.group(1))
+            fn = k.group(1) if k else None
+            continue
+        if fn not in names:
+            continue
+        regs, smem, spills = out.get(fn, (0, 0, (0, 0)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            smem = int(s.group(1)) if s else 0
+        out[fn] = (regs, smem, spills)
+    check(sorted(out) == sorted(names), f"ptxas -v reported {sorted(out)}:"
+          f" {(res.stdout + res.stderr)[-2000:]}")
+    return {k: (r, s, *sp) for k, (r, s, sp) in out.items()}
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1085,15 +1310,25 @@ def main(argv=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    tiled = ("window_compare_kernel", "window_compare_fetch_kernel")
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("dual_compare.cu (nvcc, sm_90a)", fk.load),
             ("window_compare.cu (nvcc, sm_90a)", fk.load_window),
             ("window_staged.cu (nvcc, sm_90a)", fk.load_staged),
             ("host libraries (g++)", native.build_all))}
+        report = pool.submit(ptxas_report, "window_compare.cu", tiled)
         done = {name: f.result() for name, f in builds.items()}
+        report = report.result()
     say(f"build: {time.perf_counter() - t0:.2f} s in all: " + ", ".join(
         f"{name} {t:.2f} s" for name, t in done.items()))
+    for k, (regs, smem, st, ld) in report.items():
+        words, table_words = (32, 32) if "fetch" in k else (17, 0)
+        tile, blocks, stages = fk.tiled_shape(words, table_words, 1 << 22)
+        say(f"build: ptxas -v {k}: {regs} registers, {smem} B static shared "
+            f"memory, spills {st} B stored and {ld} B loaded; at {words}-word "
+            f"columns (fused and fused_mxu) {tile} pairs a tile, {stages} "
+            f"stages, {blocks} blocks")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         tmp = pathlib.Path(tmpdir)
@@ -1194,33 +1429,40 @@ def main(argv=None) -> int:
 
         # ---- 7. the verify paths of bench_verify ------------------------
         t0 = time.perf_counter()
-        v_med, v_errs, v_launches, v_bounds, reuse = verify_paths_phase(
-            fasta, min_ovl)
+        v_med, v_errs, v_launches, v_bounds, v_floors, reuse = \
+            verify_paths_phase(fasta, min_ovl)
         say(f"verify: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 8. the fetch experiments -----------------------------------
         t0 = time.perf_counter()
-        f_med, f_errs, f_launches, f_bounds = fetch_phase(*reuse)
+        f_med, f_errs, f_launches, f_bounds, f_floors = fetch_phase(*reuse)
         del reuse
         say(f"fetch: phase {time.perf_counter() - t0:.2f} s")
 
-    def entry(k, name, source, replaces, n, err, times, bd):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": times[k], "plain_ms": times[k + "_plain"],
-                "bytes": bd["bytes"], "bound_ms": bd["bound_ms"],
-                "bound_by": bd["bound_by"], "library_ms": None}
+    def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": n, "max_abs_err": errs[k],
+             "ms": times[k], "plain_ms": times[k + "_plain"],
+             "bytes": bd["bytes"], "bound_ms": bd["bound_ms"],
+             "bound_by": bd["bound_by"], "library_ms": None}
+        if floors and k in floors:      # K3, K4, T2: the control, the floor
+            e.update(floors[k], direct_ms=times[k + "_direct"],
+                     direct_max_abs_err=errs[k + "_direct"])
+            if k + "_moved" in times:
+                e.update(ms_moved=times[k + "_moved"],
+                         direct_ms_moved=times[k + "_direct_moved"])
+        return e
 
     kernels = [
         entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
-              launches["K1"], errs["K1"], med, bounds["K1"]),
+              launches["K1"], errs, med, bounds["K1"]),
         entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE, K2_REPLACES,
-              launches["K2"], errs["K2"], med, bounds["K2"]),
-    ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs[k],
-               v_med, v_bounds[k])
+              launches["K2"], errs, med, bounds["K2"]),
+    ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs,
+               v_med, v_bounds[k], v_floors)
          for k, name, replaces in SINGLE_KERNELS] + [
-        entry(k, name, source, replaces, f_launches[k], f_errs[k], f_med,
-              f_bounds[k])
+        entry(k, name, source, replaces, f_launches[k], f_errs, f_med,
+              f_bounds[k], f_floors)
         for k, name, replaces, source in FETCH_KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(card_line())

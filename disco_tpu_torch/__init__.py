@@ -4,7 +4,7 @@ PyTorch and CUDA.
 The package mirrors ``disco_tpu``'s module names.  The host modules (ingest,
 QC, the fingerprint table, the replays) are numpy copies of their
 counterparts, kept exact by the parity tests in ``tests/test_torch_*.py``;
-the C++ host sources are compiled by path from ``disco_tpu/native``.  The
+the C++ host sources are copies of the JAX package's, in ``native/src``.  The
 device half of buildG (window codes, table lookup, candidate compaction,
 the dual window check, hit compaction) runs on torch tensors, and its two
 checks are CUDA C++ kernels for sm_90a (``csrc/dual_compare.cu``).

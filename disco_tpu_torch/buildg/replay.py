@@ -1,6 +1,6 @@
 """Parity replay of the reference's graph-construction traversal (host
 copy of disco_tpu/buildg/replay.py, without its pure-Python traversal
-oracle; the traversal runs in disco_tpu/native/replay.cpp).
+oracle; the traversal runs in native/src/replay.cpp).
 
 The heavy work — verifying every candidate overlap — is done order-free
 (disco_tpu_torch.overlap). What remains order-DEPENDENT in the reference is

@@ -1,6 +1,7 @@
 // Row readers and the packed-window compare shared by the window-check
-// kernels (dual_compare.cu, window_compare.cu, window_staged.cu), and the
-// staged row window of window_staged.cu.
+// kernels (dual_compare.cu, window_compare.cu, window_staged.cu), the
+// staged row window of window_staged.cu, and the tiles of column inputs of
+// window_compare.cu.
 //
 // Reads are 2-bit bases packed 16 to a uint32 word, base i in bits
 // [30 - 2(i%16), 32 - 2(i%16)) of word i/16.  A word index outside the row
@@ -205,6 +206,173 @@ __device__ __forceinline__ void add_count(int n,
                                           unsigned long long* total) {
   const unsigned s = __reduce_add_sync(0xFFFFFFFFu, static_cast<unsigned>(n));
   if ((threadIdx.x & 31) == 0 && s) atomicAdd(total, s);
+}
+
+// ---------------------------------------------------------------------------
+// A tile of column inputs in shared memory (window_compare.cu: K3, K4).
+//
+// A tile is T = blockDim.x consecutive pairs [p0, p0 + T), T a multiple of
+// 32.  Word rows [lo, lo + rows) of a (W, P) column input, columns
+// [p0, p0 + T), lie at s[(w - lo) * T + (p - p0)], so the 32 threads of a
+// warp, each reading some word of its own column, read 32 banks.
+struct TileRows {
+  int lo;    // first staged word row
+  int rows;  // rows staged (0: none)
+};
+
+// The least `lo` and greatest `hi` over a tile's pairs (lo > hi: none).
+struct TileSpan {
+  int lo, hi;
+};
+
+// The words window_equal_at reads of a row for a window of n bases at base
+// offset o: o >> 4 to (o >> 4) + ceil(n / 16), its one-past word included.
+// A pair with n <= 0, or not `live`, reads none: INT_MAX and INT_MIN.
+__device__ __forceinline__ TileSpan pair_words(int o, int n, bool live) {
+  return live && n > 0
+             ? TileSpan{o >> 4, (o >> 4) + (n >> 4) + ((n & 15) != 0)}
+             : TileSpan{0x7FFFFFFF, static_cast<int>(0x80000000u)};
+}
+
+// Block-wide least lo and greatest hi of each of K spans (every thread gets
+// them).  `scratch` holds 2 * K * 32 ints; every thread of the block calls
+// this, and it syncs once.
+template <int K>
+__device__ __forceinline__ void tile_spans(const TileSpan (&mine)[K],
+                                           int* scratch,
+                                           TileSpan (&out)[K]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int l = __reduce_min_sync(0xFFFFFFFFu, mine[k].lo);
+    const int h = __reduce_max_sync(0xFFFFFFFFu, mine[k].hi);
+    if (lane == 0) {
+      scratch[(2 * k) * 32 + warp] = l;
+      scratch[(2 * k + 1) * 32 + warp] = h;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int l = 0x7FFFFFFF, h = static_cast<int>(0x80000000u);
+    for (int i = 0; i < warps; ++i) {
+      l = min(l, scratch[(2 * k) * 32 + i]);
+      h = max(h, scratch[(2 * k + 1) * 32 + i]);
+    }
+    out[k] = TileSpan{l, h};
+  }
+}
+
+// The word rows of a (words, P) column input to stage for a tile whose
+// windows read the words of span s (pair_words): s cut to [0, words).  A
+// word outside the row reads as 0 without being staged, so these are all
+// the words the tile's compares read from the input.
+__device__ __forceinline__ TileRows tile_rows(TileSpan s, int words) {
+  const int l = max(s.lo, 0), h = min(s.hi, words - 1);
+  return TileRows{l, h >= l ? h - l + 1 : 0};
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start (no wait) the block's copies of rows r of a (W, P) column input,
+// columns [p0, p0 + T), into s.  Thread i takes the 16-B chunk i % (T / 4)
+// of every fourth row from row i / (T / 4): one 16-B cp.async.cg where the
+// source is 16-B aligned and the chunk lies inside [0, P), else a 4-B copy
+// for each of its columns inside [0, P) (rows of a P % 4 != 0 input start
+// misaligned; the last tile ends at P).  Columns past P are not copied:
+// their pairs are not compared.
+__device__ __forceinline__ void stage_columns(uint32_t* s, const uint32_t* x,
+                                              int64_t P, int64_t p0,
+                                              TileRows r) {
+  const int T = blockDim.x, chunks = T >> 2;
+  const int c = 4 * (static_cast<int>(threadIdx.x) % chunks);
+  const int64_t left = P - p0 - c;
+  int i = static_cast<int>(threadIdx.x) / chunks;
+  if (i >= r.rows) return;
+  const uint32_t* src = x + static_cast<int64_t>(r.lo + i) * P + p0 + c;
+  uint32_t* dst = s + i * T + c;
+  for (; i < r.rows; i += 4, src += 4 * P, dst += 4 * T) {
+    if (left >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(dst, src);
+    } else {
+      for (int k = 0; k < 4 && k < left; ++k) cp_async4(dst + k, src + k);
+    }
+  }
+}
+
+// window_equal_at for n > 0 over words that all lie in shared memory: word
+// d + i of a at pa[i * step_a] (pa = word d1), of b at pb[i * step_b], for
+// i = 0 .. ceil(n / 16), its one-past word included.  The same compares in
+// the same order, without the readers' bounds checks, and with the partial
+// mask only on the last word.
+__device__ __forceinline__ bool staged_window_equal(const uint32_t* pa,
+                                                    int step_a, int s1,
+                                                    const uint32_t* pb,
+                                                    int step_b, int s2,
+                                                    int n) {
+  uint32_t a_cur = *pa, b_cur = *pb;
+  int rem = n;
+  for (; rem > 16; rem -= 16) {
+    pa += step_a;
+    pb += step_b;
+    const uint32_t a_nxt = *pa, b_nxt = *pb;
+    if (__funnelshift_l(a_nxt, a_cur, s1) != __funnelshift_l(b_nxt, b_cur, s2))
+      return false;
+    a_cur = a_nxt;
+    b_cur = b_nxt;
+  }
+  const uint32_t mask = 0xFFFFFFFFu << (2 * (16 - rem));
+  return ((__funnelshift_l(pa[step_a], a_cur, s1) ^
+           __funnelshift_l(pb[step_b], b_cur, s2)) & mask) == 0;
+}
+
+// Word w of one pair's row from its tile's staged rows (s = the stage's
+// column of the pair, stride T); a word outside the staged rows reads as 0,
+// which is exact for every word outside the row, and tile_rows stages every
+// word inside the row that the pair's window reads.
+struct TileColumn {
+  const uint32_t* s;
+  TileRows r;
+  int stride;
+  __device__ __forceinline__ uint32_t operator()(int w) const {
+    const int i = w - r.lo;
+    return static_cast<unsigned>(i) < static_cast<unsigned>(r.rows)
+               ? s[i * stride]
+               : 0u;
+  }
+};
+
+// ok[p] for the tile's pairs, four to a 32-bit store where all four lie
+// inside [0, P) and ok is 4-B aligned; every thread of the warp calls this.
+__device__ __forceinline__ void store_flags(uint8_t* ok, int64_t p, int64_t P,
+                                            bool v) {
+  const unsigned x0 = v;
+  const unsigned x1 = __shfl_down_sync(0xFFFFFFFFu, x0, 1);
+  const unsigned x2 = __shfl_down_sync(0xFFFFFFFFu, x0, 2);
+  const unsigned x3 = __shfl_down_sync(0xFFFFFFFFu, x0, 3);
+  if ((threadIdx.x & 3) != 0 || p >= P) return;
+  if (p + 4 <= P && (reinterpret_cast<uintptr_t>(ok + p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(ok + p) =
+        x0 | (x1 << 8) | (x2 << 16) | (x3 << 24);
+  } else {
+    const unsigned xs[4] = {x0, x1, x2, x3};
+    for (int k = 0; k < 4 && p + k < P; ++k) ok[p + k] = xs[k];
+  }
 }
 
 }  // namespace disco

@@ -6,9 +6,10 @@ ctypes, both built into BUILD_DIR (listed in .gitignore):
 - the CUDA kernels in ``csrc/*.cu``, compiled by ``nvcc`` for sm_90a
   (H100).  A plain C interface compiles in seconds; a source that includes
   PyTorch's headers would take minutes;
-- the C++ host sources of ``disco_tpu/native/*.cpp``, compiled by ``g++``
-  from where they are, so the repository keeps one copy of them.  Nothing
-  is written into ``disco_tpu/``.
+- the C++ host sources in ``native/src/*.cpp``, compiled by ``g++``.  They
+  are byte-identical copies of their counterparts in the JAX package
+  (``tests/test_torch_native_sources.py`` holds them so); the port builds
+  and reads nothing outside its own directory.
 
 A library is rebuilt when it is missing or older than one of its sources
 or of the headers they include (`deps`).  Each build writes a private temporary file and renames it into place, so
@@ -21,7 +22,7 @@ import subprocess
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
-NATIVE_SRC = PKG_DIR.parent / "disco_tpu" / "native"
+NATIVE_SRC = PKG_DIR / "native" / "src"
 BUILD_DIR = PKG_DIR / "_build"
 
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -64,7 +65,7 @@ def load_cuda(name: str, deps=()) -> ctypes.CDLL:
 
 
 def load_native(name: str, opt: str = "-O2", extra=()) -> ctypes.CDLL:
-    """Compile disco_tpu/native/<name>.cpp with g++ (once) and load it."""
+    """Compile native/src/<name>.cpp with g++ (once) and load it."""
     so = _build(BUILD_DIR / f"_{name}.so", [NATIVE_SRC / f"{name}.cpp"],
                 ["g++", opt, "-shared", "-fPIC", "-std=c++17", *extra])
     return ctypes.CDLL(str(so))

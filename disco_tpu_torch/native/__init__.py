@@ -1,8 +1,8 @@
 """ctypes bindings for the C++ host code on the buildG path.
 
-The sources are disco_tpu/native/{readqc,overlap,replay}.cpp, compiled
-by path into the port's own build directory (see
-disco_tpu_torch/kernels.py).  Only what the buildG slice calls is bound:
+The sources are native/src/{readqc,overlap,replay}.cpp, byte-identical
+copies of the JAX package's, compiled into the port's own build directory
+(see disco_tpu_torch/kernels.py).  Only what the buildG slice calls is bound:
 read QC and packing, the record scanner, the native overlap relation (all
 three protocols), and the traversal replay.  Semantics are those of disco_tpu/native/__init__.py."""
 import ctypes
@@ -90,7 +90,7 @@ def _as_char_p(x):
 
 
 # ---------------------------------------------------------------------------
-# buildG traversal replay (see disco_tpu/native/replay.cpp)
+# buildG traversal replay (see src/replay.cpp)
 # ---------------------------------------------------------------------------
 def graph_replay(n: int, k: int, wpgs: int, starts, ej, er2, eo, lens, fidx,
                  all_marked, start_read: int = 1):
@@ -157,7 +157,7 @@ def edge_hit_groups(r1, j, r2, orient, edge_ok, contained, n: int):
 
 
 # ---------------------------------------------------------------------------
-# Read QC + 2-bit packing + record scan (see disco_tpu/native/readqc.cpp)
+# Read QC + 2-bit packing + record scan (see src/readqc.cpp)
 # ---------------------------------------------------------------------------
 def qc_test_reads(blob: bytes, offsets: np.ndarray,
                   min_overlap: int) -> np.ndarray:
@@ -237,7 +237,7 @@ def seq_scan(raw):
 
 
 # ---------------------------------------------------------------------------
-# Overlap relation (see disco_tpu/native/overlap.cpp)
+# Overlap relation (see src/overlap.cpp)
 # ---------------------------------------------------------------------------
 def _table_args(packed, packed_rc, lengths, keys, tread, torient, ttyp):
     return (np.ascontiguousarray(packed, np.uint32),

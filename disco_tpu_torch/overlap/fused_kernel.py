@@ -32,6 +32,11 @@ The single check ok = a@o1 == b@o2 over n bases, in csrc/window_compare.cu:
 The TPU versions need P to be a multiple of TILE, check a span guard and
 fall back through lax.cond; these take any P and have no guard, because a
 thread loads its own rows.  They return the same booleans.
+K3's and K4's kernels stage each tile's rows in shared memory (`tile_rows`
+states which column rows); their column inputs may be at most
+MAX_COLUMN_WORDS words wide.  `fused_compare_direct` and
+`fused_compare_fetch_direct` launch the earlier one-thread-a-pair kernels
+of the same functions: timing controls, on no path.
 
 And in csrc/window_staged.cu, whose kernels read their rows from a window
 of rows staged in shared memory for each tile of TILE pairs:
@@ -66,6 +71,7 @@ W16 = 16          # words per row of the pack_lines16 table
 NB16_B = 7        # pack_lines16 headroom, in 64-row blocks
 W_CMP = 24        # words K5 compares of each 32-word row
 BOTH_ROWS = (192, 384)   # K5's staged rows per tile: read1, read2
+MAX_COLUMN_WORDS = 256   # widest column input of K3's and K4's kernels
 
 _LIB = None
 _WINDOW_LIB = None
@@ -102,9 +108,17 @@ def load_window():
             [vp, i64, i32, vp, vp, i64] + [vp] * 5)
         lib.disco_window_compare_aligned.argtypes = (
             [vp, vp, i32, i64] + [vp] * 5)
+        lib.disco_window_compare_direct.argtypes = (
+            lib.disco_window_compare.argtypes)
+        lib.disco_window_compare_fetch_direct.argtypes = (
+            lib.disco_window_compare_fetch.argtypes)
+        lib.disco_window_compare_shape.argtypes = [i32, i32, i64] + [vp] * 3
         for fn in (lib.disco_window_compare, lib.disco_window_compare_fetch,
                    lib.disco_window_compare_fetch_both,
-                   lib.disco_window_compare_aligned):
+                   lib.disco_window_compare_aligned,
+                   lib.disco_window_compare_direct,
+                   lib.disco_window_compare_fetch_direct,
+                   lib.disco_window_compare_shape):
             fn.restype = ctypes.c_int
         _WINDOW_LIB = lib
     return _WINDOW_LIB
@@ -349,31 +363,104 @@ def verify_windows_fused_mxu_both16_plain(packed_lines16, rows1, rows2, o1,
 # ---------------------------------------------------------------------------
 # the single window check: wrappers
 # ---------------------------------------------------------------------------
-def fused_compare(a, b, o1, o2, n):
-    """a, b: (Wp, P) int32 row columns (pair p's packed row in column p);
-    o1/o2: (P,) int32 base offsets of the windows; n: (P,) int32 window
-    lengths (0 => True).  Returns (P,) bool."""
+def _column_words(w):
+    if w > MAX_COLUMN_WORDS:
+        raise ValueError(f"column inputs of {w} words: K3's and K4's "
+                         f"kernels take at most {MAX_COLUMN_WORDS}")
+
+
+def _compare(kernel, a, b, o1, o2, n):
+    """K3's checks, then its plain version (CPU) or `kernel` of the
+    library.  Returns (ok, whether the kernel was launched)."""
     if a.dim() != 2 or b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          "be equal (Wp, P) column blocks")
     wp, p = a.shape
+    _column_words(wp)
     geo = (o1, o2, n)
     dev = _check((a, b), geo, p)
     if dev.type == "cpu":
-        return fused_compare_plain(a, b, *geo)
+        return fused_compare_plain(a, b, *geo), False
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     if p == 0:
-        return ok
+        return ok, False
     with torch.cuda.device(dev):
-        err = load_window().disco_window_compare(
+        err = getattr(load_window(), kernel)(
             a.data_ptr(), b.data_ptr(), wp, p, *(g.data_ptr() for g in geo),
             ok.data_ptr(), _stream(dev))
-    _raise_on(err, "window_compare")
-    fused_compare.launches += 1
+    _raise_on(err, kernel)
+    return ok, True
+
+
+def fused_compare(a, b, o1, o2, n):
+    """a, b: (Wp, P) int32 row columns (pair p's packed row in column p),
+    Wp <= MAX_COLUMN_WORDS; o1/o2: (P,) int32 base offsets of the windows;
+    n: (P,) int32 window lengths (0 => True).  Returns (P,) bool."""
+    ok, launched = _compare("disco_window_compare", a, b, o1, o2, n)
+    fused_compare.launches += launched
     return ok
 
 
 fused_compare.launches = 0
+
+
+def fused_compare_direct(a, b, o1, o2, n):
+    """`fused_compare` through the one-thread-a-pair kernel it had before
+    its columns were tiled: a timing control, on no path."""
+    ok, launched = _compare("disco_window_compare_direct", a, b, o1, o2, n)
+    fused_compare_direct.launches += launched
+    return ok
+
+
+fused_compare_direct.launches = 0
+
+
+def tiled_shape(words, table_words, p):
+    """The launch shape of K3's tiled kernel (table_words 0) or K4's (read1's
+    rows table_words wide) over column inputs of `words` words and p pairs,
+    on the current CUDA device: (pairs per tile, blocks, stages of the
+    ring)."""
+    _column_words(words)
+    out = [ctypes.c_int() for _ in range(3)]
+    _raise_on(load_window().disco_window_compare_shape(
+        words, table_words, p, *(ctypes.addressof(x) for x in out)),
+        "window_compare_shape")
+    return tuple(x.value for x in out)
+
+
+def read_words(o, n, words):
+    """The words of a `words`-word row that the kernels read for a window
+    of n bases at base offset o (csrc/window.cuh window_equal_at: words
+    o >> 4 to (o >> 4) + ceil(n / 16), the one-past word included), cut to
+    [0, words): (first, last) int64 (P,) tensors, last < first where the
+    window reads no word of the row."""
+    o, n = o.long(), n.long()
+    d = o >> 4
+    live = n > 0
+    first = torch.where(live, d.clamp(min=0), 0)
+    last = torch.where(live, (d + ((n + 15) >> 4)).clamp(max=words - 1), -1)
+    return first, last
+
+
+def tile_rows(o, n, words, tile):
+    """The word rows K3's and K4's kernels stage of a `words`-word column
+    input for each tile of `tile` pairs (the last one partial): from the
+    least to the greatest word `read_words` gives over the tile's pairs
+    with n > 0 (csrc/window.cuh tile_rows).  Returns (lo, rows), int64
+    tensors of ceil(P / tile); rows 0 where nothing is staged."""
+    first, last = read_words(o, n, words)
+    live = n > 0
+    t = torch.arange(len(first), device=first.device) // tile
+    nt = -(-len(first) // tile)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.full((nt,), big, dtype=torch.int64,
+                    device=first.device).scatter_reduce(
+        0, t, torch.where(live, first, big), "amin")
+    hi = torch.full((nt,), -1, dtype=torch.int64,
+                    device=first.device).scatter_reduce(
+        0, t, torch.where(live, last, -1), "amax")
+    rows = (hi - lo + 1).clamp(min=0)
+    return torch.where(rows > 0, lo, 0), rows
 
 
 def verify_windows_fused(packed_all, rows1, rows2, o1, o2, n, *, n_words):
@@ -402,7 +489,7 @@ def _check_lines(lines):
 
 def fused_compare_fetch(table, b, rows1, o1, o2, n):
     """table: (R, Wt) int32 row-major packed rows; b: (Wb, P) int32 columns
-    of read2's rows; rows1: (P,) int32 rows of read1 in `table`, best
+    of read2's rows, Wb <= MAX_COLUMN_WORDS; rows1: (P,) int32 rows of read1 in `table`, best
     sorted (a row outside the table reads as zeros); o1/o2/n: (P,) int32
     window geometry.  Returns (P,) bool."""
     ok, launched = compare_fetch(table, b, rows1, o1, o2, n)
@@ -417,11 +504,31 @@ def compare_fetch(table, b, rows1, o1, o2, n):
     """`fused_compare_fetch` without its count, for the wrappers that run
     the same kernel under their own (tools.exp_fetch_variants.verify_pipe_nc).
     Returns (ok, whether the kernel was launched)."""
+    return _compare_fetch("disco_window_compare_fetch", table, b, rows1, o1,
+                          o2, n)
+
+
+def fused_compare_fetch_direct(table, b, rows1, o1, o2, n):
+    """`fused_compare_fetch` through the one-thread-a-pair kernel it had
+    before read2's columns were tiled: a timing control, on no path."""
+    ok, launched = _compare_fetch("disco_window_compare_fetch_direct", table,
+                                  b, rows1, o1, o2, n)
+    fused_compare_fetch_direct.launches += launched
+    return ok
+
+
+fused_compare_fetch_direct.launches = 0
+
+
+def _compare_fetch(kernel, table, b, rows1, o1, o2, n):
+    """K4's checks, then its plain version (CPU) or `kernel` of the
+    library.  Returns (ok, whether the kernel was launched)."""
     if table.dim() != 2 or b.dim() != 2:
         raise ValueError(f"table {tuple(table.shape)} and b "
                          f"{tuple(b.shape)}: need (R, Wt) and (Wb, P)")
     n_rows, wt = table.shape
     wb, p = b.shape
+    _column_words(wb)
     geo = (o1, o2, n)
     dev = _check((table, b, rows1), geo, p)
     if rows1.shape != (p,):
@@ -432,10 +539,10 @@ def compare_fetch(table, b, rows1, o1, o2, n):
     if p == 0:
         return ok, False
     with torch.cuda.device(dev):
-        err = load_window().disco_window_compare_fetch(
+        err = getattr(load_window(), kernel)(
             table.data_ptr(), n_rows, wt, b.data_ptr(), wb, rows1.data_ptr(),
             p, *(g.data_ptr() for g in geo), ok.data_ptr(), _stream(dev))
-    _raise_on(err, "window_compare_fetch")
+    _raise_on(err, kernel)
     return ok, True
 
 

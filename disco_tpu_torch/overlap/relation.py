@@ -131,7 +131,7 @@ def compute_relation(store: ReadStore, table: FingerprintTable,
     card; without one it raises).  Default when a card is present; below 2^20
     windows the auto-selected device backend gives way to the native one.
 
-    backend="native": the C++/OpenMP kernel (disco_tpu/native/overlap.cpp).
+    backend="native": the C++/OpenMP kernel (native/src/overlap.cpp).
 
     backend="xla": exact host expansion of every candidate pair, checked in
     chunks of `chunk` candidates through the K1 wrapper on `device`."""

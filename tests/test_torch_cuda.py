@@ -1,7 +1,8 @@
 """The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
-K4, K5, K6; overlap/pallas_kernel.py: K7; tools/exp_fetch_variants.py: T1,
-T2; tools/exp_mxu_fetch.py: T3) against their plain versions, on a CUDA
-card.  Tolerance: exact — the outputs are booleans and integers.
+K4, K5, K6, and the one-thread-a-pair controls of K3 and K4;
+overlap/pallas_kernel.py: K7; tools/exp_fetch_variants.py: T1, T2;
+tools/exp_mxu_fetch.py: T3) against their plain versions, on a CUDA card.
+Tolerance: exact — the outputs are booleans and integers.
 
 This file imports neither jax nor disco_tpu, so it also runs where only
 PyTorch is installed:
@@ -296,6 +297,17 @@ def test_single_kernels_read_zeros_past_row_end(cuda_device):
                                                        n_words=16)
         torch.cuda.synchronize()
         _assert_same([want], [got])
+        if name in ("K3", "K4"):             # the direct control
+            if name == "K3":
+                got = port.fused_compare_direct(
+                    as_words(table[r1].T, cuda_device),
+                    as_words(table[r2].T, cuda_device), *dev[2:])
+            else:
+                got = port.fused_compare_fetch_direct(
+                    as_words(table, cuda_device),
+                    as_words(table[r2].T, cuda_device), *dev[:1], *dev[2:])
+            torch.cuda.synchronize()
+            _assert_same([want], [got])
     # K7: lengths up to 16 (W + 2) bases over (W + 1)-word columns
     w1 = packed_all.shape[1]
     rng = np.random.default_rng(17)
@@ -444,3 +456,123 @@ def test_staged_kernels_on_empty_batch(cuda_device):
     for name, kern, args in _staged_cases(packed_all, z, z, z, z, z):
         out = kern(*(_to(a, cuda_device) for a in args))
         assert out.shape == (0,) and out.is_cuda, name
+
+
+# ---------------------------------------------------------------------------
+# K3's and K4's tiled kernels and their one-thread-a-pair controls
+# ---------------------------------------------------------------------------
+def _sizes(w, table_words):
+    """P of one pair, of partial and whole tiles, not a multiple of 4
+    (misaligned column rows), and past the ring: more tiles than blocks x
+    stages, so that every block's stages wrap."""
+    tile, blocks, stages = port.tiled_shape(w, table_words, 1 << 40)
+    return [1, 31, 255, 256, 257, 3001, (1 << 16) + 5,
+            blocks * stages * tile + 5]
+
+
+def _column_batch(seed, p, w, n_rows=4096, order="sorted"):
+    """Rows of w random words; rows1 sorted (or not); windows at every bit
+    phase of both offsets ending inside the row (before word w - 1), n = 0
+    on every seventh pair and on the whole second tile of 256, true matches
+    on every fourth pair.  Returns (table, rows1, rows2, o1, o2, n)."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2 ** 32, (n_rows, w), dtype=np.uint64).astype(
+        np.uint32)
+    i = np.arange(p)
+    rows1 = rng.integers(0, n_rows, p)
+    if order == "sorted":
+        rows1 = np.sort(rows1)
+    same = i % 4 == 0
+    rows2 = np.where(same, rows1, rng.integers(0, n_rows, p))
+    end = 16 * (w - 1)
+    o1 = rng.integers(0, end, p) & ~15 | (i & 15)
+    o2 = np.where(same, o1, rng.integers(0, end, p) & ~15 | (i >> 4) & 15)
+    n = np.minimum(end - np.maximum(o1, o2), rng.integers(0, 16 * w, p))
+    n[::7] = 0
+    n[256:512] = 0
+    return table, rows1, rows2, o1, o2, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 17, 32, 256])
+def test_tiled_k3_and_control_match_plain(cuda_device, w):
+    for p in _sizes(w, 0):
+        table, rows1, rows2, o1, o2, n = _column_batch(w + p, p, w)
+        args = (as_words(table[rows1].T), as_words(table[rows2].T),
+                *(_t(x) for x in (o1, o2, n)))
+        want = port.fused_compare_plain(*args)
+        for fn in (port.fused_compare, port.fused_compare_direct):
+            before = fn.launches
+            got = fn(*(x.to(cuda_device) for x in args))
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, (fn.__name__, p)
+            _assert_same([want], [got])
+        if p > 1000:
+            assert want.any() and not want.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wb", [17, 32, 256])
+@pytest.mark.parametrize("order", ["sorted", "random"])
+def test_tiled_k4_and_control_match_plain(cuda_device, wb, order):
+    """read1's rows fetched from a (R, 32) table, read2's (Wb, P) columns
+    staged; T2's launch (compare_fetch) is the same kernel."""
+    for p in _sizes(wb, 32):
+        table, rows1, rows2, o1, o2, n = _column_batch(wb + p, p, max(wb, 32),
+                                                       order=order)
+        o1, o2 = o1 % (16 * (wb - 1)), o2 % (16 * (wb - 1))
+        n = np.minimum(n, 16 * (wb - 1) - np.maximum(o1, o2))
+        args = (as_words(table[:, :32]), as_words(table[rows2, :wb].T),
+                _t(rows1), *(_t(x) for x in (o1, o2, n)))
+        want = port.fused_compare_fetch_plain(*args)
+        dev = [x.to(cuda_device) for x in args]
+        for fn in (port.fused_compare_fetch, port.fused_compare_fetch_direct):
+            before = fn.launches
+            got = fn(*dev)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, (fn.__name__, p)
+            _assert_same([want], [got])
+        got, launched = port.compare_fetch(*dev)
+        torch.cuda.synchronize()
+        assert launched
+        _assert_same([want], [got])
+        if p > 1000:
+            assert want.any() and not want.all()
+
+
+@pytest.mark.cuda
+def test_tiled_kernels_past_the_row_and_before_it(cuda_device):
+    """Windows running up to one word past rows of 2, 17 and 32 words, and
+    windows starting before the row (negative offsets): a word outside the
+    row reads as 0 in the tiled kernels and their controls alike.  The
+    reference is the plain check over rows with two zero words on both
+    sides, the offsets moved by those two words."""
+    rng = np.random.default_rng(31)
+    for w in (2, 17, 32):
+        p = 3001
+        table = rng.integers(0, 2 ** 32, (512, w), dtype=np.uint64).astype(
+            np.uint32)
+        i = np.arange(p)
+        same = i % 4 == 0
+        rows1 = np.sort(rng.integers(0, 512, p))
+        rows2 = np.where(same, rows1, rng.integers(0, 512, p))
+        o1 = rng.integers(-32, 16 * (w + 1), p)
+        o2 = np.where(same, o1, rng.integers(-32, 16 * (w + 1), p))
+        n = np.maximum(16 * (w + 1) - np.maximum(o1, o2), 0)
+        n[::7] = 0
+        padded = np.zeros((512, w + 4), np.uint32)
+        padded[:, 2:w + 2] = table
+        g = [_t(x) for x in (o1 + 32, o2 + 32, n)]
+        want = port.window_check_plain(as_words(padded[rows1]),
+                                       as_words(padded[rows2]), *g)
+        assert want.any() and not want.all()
+        dev = [_t(x).to(cuda_device) for x in (rows1, o1, o2, n)]
+        a = as_words(table[rows1].T, cuda_device)
+        b = as_words(table[rows2].T, cuda_device)
+        t = as_words(table, cuda_device)
+        for got in (port.fused_compare(a, b, *dev[1:]),
+                    port.fused_compare_direct(a, b, *dev[1:]),
+                    port.fused_compare_fetch(t, b, *dev),
+                    port.fused_compare_fetch_direct(t, b, *dev)):
+            torch.cuda.synchronize()
+            _assert_same([want], [got])

@@ -363,3 +363,26 @@ def test_single_wrappers_reject_bad_inputs():
                                              n_words=store.n_words)
     with pytest.raises(ValueError):
         compare_windows(cols, cols.T.contiguous().T, *g)
+
+
+def test_column_kernels_take_at_most_256_words():
+    """K3's and K4's kernels stage column inputs of at most 256 words
+    (4,080 bp): a wider one raises on every device, the control's wrapper
+    included; 256 words pass."""
+    rng = np.random.default_rng(3)
+    g = _ints(*(rng.integers(0, 200, 40) for _ in range(3)))
+    r1 = _t(rng.integers(0, 8, 40))
+    for w in (256, 257):
+        cols = _t(rng.integers(0, 2 ** 31, (w, 40)))
+        table = _t(rng.integers(0, 2 ** 31, (8, 32)))
+        calls = (lambda: port.fused_compare(cols, cols, *g),
+                 lambda: port.fused_compare_direct(cols, cols, *g),
+                 lambda: port.fused_compare_fetch(table, cols, r1, *g),
+                 lambda: port.fused_compare_fetch_direct(table, cols, r1,
+                                                         *g))
+        for call in calls:
+            if w == 256:
+                assert call().shape == (40,)
+            else:
+                with pytest.raises(ValueError, match="at most 256"):
+                    call()
