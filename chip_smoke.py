@@ -9,8 +9,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    limit, and the torch and CUDA versions;
 2. build: the CUDA kernels (nvcc, sm_90a) and the C++ host libraries (g++)
    from the checkout's sources, timed, and `ptxas -v`'s registers, shared
-   memory and spills for K3's and K4's tiled kernels, with their tiles,
-   stages and blocks at the main path's widths;
+   memory and spills for K3's, K4's, T1's, K5's and T3's kernels and T1's
+   and K5's controls, with their tiles, stages and blocks at the main
+   path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
    genome, 30x, 250 bp paired reads, 500 bp insert, seed 42);
    MinOverlap4BuildGraph from the shipped cfg (30);
@@ -20,7 +21,7 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    (n = 0, every bit phase, windows ending at the read's last base, P not
    a multiple of 1024) and on windows running up to one word past the row,
    which the kernels read as zeros; kernel and plain times by CUDA events,
-   the median over several chunks;
+   the median over several chunks, the kernels' also held (below);
    reference: the device backend's outputs on the golden `mini` and
    `ecoli` inputs are byte-identical to the reference assembler's;
 5. slice, the main path: with the launch counts set to 0, `run_buildg`
@@ -54,7 +55,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    bit phase, n = 0 and a whole tile of it, P = 1, 31, 255, 256, 257,
    3001, 2^16 + 5 and past the tiled kernels' ring, K3 on rows of 2, 17
    and 32 words, K4 with Wb = 17 and 32 and rows1 sorted and not, windows
-   past the row, K7's over-long windows);
+   past the row, K7's over-long windows; K3 and K4 on columns of 257 and
+   300 words, which their wrappers send to the one-thread-a-pair kernel
+   and count as their own launch);
 8. fetch experiments (`python -m disco_tpu_torch.tools.exp_fetch_variants`
    and `exp_mxu_fetch`) on phase 7's batch and relabel: with the K5, T1,
    T2 and T3 launch counts set to 0, K5 over the relabeled 32-word table
@@ -63,12 +66,17 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    tables, in slices of 2^22 pairs, as made and with read2's window moved
    one base on odd pairs, each slice equal to the plain verify_windows;
    T3 (`fetch_checksum`) over the r1-sorted tiles with salt 0 and 1, equal
-   to the tool's numpy checksum.  The counts are read right after and each
-   must be above 0.  Then each kernel against its plain version, timed at
-   P = 2^22 (T2 in turns with K4's control), its out-of-window row reads,
-   and edge-case batches (every bit
-   phase, n = 0, P = 1 and 3001, rows outside every window, windows past
-   the row).
+   to the tool's numpy checksum; K5's and T1's out-of-window row reads on
+   each slice equal their window rules' counts (`_both_misses`,
+   `sync_misses`).  The counts are read right after and each must be
+   above 0, and the counts of K5's and T1's controls (their kernels before
+   the copies overlapped the compares, `_unpipelined`) must be 0.  Then
+   each kernel against its plain version, timed at P = 2^22 (K5, T1 and T2
+   in turns with their controls, as made and moved: K5's and T1's
+   `_unpipelined`, T2's K4's `_direct`), its out-of-window row reads, and
+   edge-case batches (every bit phase, n = 0, P = 1, 255, 1023, 1025, 3001
+   and past K5's and T1's rings, rows outside every window, windows past
+   the row; the controls of K5 and T1 too).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -76,12 +84,20 @@ over 67e12 a second (the H100 SXM figures of NVIDIA's data sheet).  Its
 bytes are counted from the inputs it was timed on: 12 B of window geometry
 a pair (20 B for the dual check), each row index, each output, the words
 each window spans in a column input, and each distinct row a fetch kernel
-reads (its Wp = n_words + 1 data words), each once.  K3, K4 and T2 also
-carry a sector floor: what a kernel must read at the card's 32-B sector
-granularity, the column inputs' sectors that some window of each group of 8
-neighbouring pairs reads, plus the same geometry, indices and outputs and
-the fetched rows in whole sectors, over 3.35 TB/s.  No single PyTorch call
+reads (its Wp = n_words + 1 data words), each once.  K3, K4, T1, T2 and
+K5 also carry a sector floor: what a kernel must read at the card's 32-B
+sector granularity, the column inputs' sectors that some window of each
+group of 8 neighbouring pairs reads, plus the same geometry, indices and
+outputs and the fetched rows in whole sectors, over 3.35 TB/s (K5 has no
+column input: its floor is its distinct rows of both sides in whole
+sectors and 21 B a pair).  No single PyTorch call
 computes a packed-window compare or the checksum, so `library_ms` is null.
+
+Times are the mean of back-to-back calls through the wrappers, as a path
+makes them.  A kernel shorter than its wrapper's host work is then timed on
+the host, so K1, K2, K6, K7 and T3 (the kernels timed without a control)
+also carry `held_ms`: the same calls queued behind a sleep kernel, so that
+the events time the card alone.
 
 With --profile, one more device relation runs under cProfile and
 torch.profiler: host functions by cumulative seconds, the device's busy
@@ -108,6 +124,7 @@ DEVICE = "cuda"
 CHUNK = 1 << 20          # windows per device step on a card (main path)
 CAND_FACTOR = 4          # cand_cap = 4 * chunk
 VERIFY_SLICE = 1 << 22   # pairs per verify-path call
+HOLD_CYCLES = 10_000_000  # cuda_ms's hold: some 5 ms at the H100's clocks
 K1_REPLACES = "disco_tpu/overlap/fused_kernel.py:120"   # fused_compare_dual
 K2_REPLACES = "disco_tpu/overlap/fused_kernel.py:737"   # fused_compare_dual_mxu
 KERNEL_SOURCE = "disco_tpu_torch/csrc/dual_compare.cu"
@@ -130,6 +147,15 @@ FETCH_KERNELS = (
      WINDOW_SOURCE),
     ("T3", "fetch_checksum", "tools/exp_mxu_fetch.py:28", STAGED_SOURCE),
 )
+# the kernels whose `ptxas -v` phase 2 prints, by source
+PTXAS_KERNELS = {
+    "window_compare.cu": ("window_compare_kernel",
+                          "window_compare_fetch_kernel"),
+    "window_staged.cu": ("window_compare_anchored_kernel",
+                         "window_compare_ring_both_kernel",
+                         "window_compare_staged_kernel",
+                         "window_compare_staged_both_kernel",
+                         "row_checksum_staged_kernel")}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
@@ -168,13 +194,19 @@ class StageWalls(logging.Handler):
             self.walls.append((record.args[0], float(record.args[1])))
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, hold=False):
     """Mean device milliseconds of fn() over `reps` calls, after one warm-up
-    call, by CUDA events."""
+    call, by CUDA events.  Back to back, a call whose kernel is shorter than
+    its wrapper's host work times the host.  With `hold`, a sleep kernel
+    holds the stream while the host queues the calls, so the events time
+    the card's work alone (the held time)."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -427,7 +459,8 @@ def kernel_phase(store, table):
     starts = eng.window_starts()
     n_chunks = -(-len(starts) // CHUNK)
     picks = sorted({int(c) for c in np.linspace(0, max(n_chunks - 2, 0), 5)})
-    times = {"K1": [], "K1_plain": [], "K2": [], "K2_plain": []}
+    times = {k: [] for k in ("K1", "K1_plain", "K1_held", "K2", "K2_plain",
+                             "K2_held")}
     errs = {"K1": 0, "K2": 0}
     bounds = {"K1": [], "K2": []}
 
@@ -449,6 +482,7 @@ def kernel_phase(store, table):
             errs[name] = max(errs[name], err)
             if timed:
                 times[name].append(cuda_ms(kern, 20))
+                times[name + "_held"].append(cuda_ms(kern, 20, hold=True))
                 times[name + "_plain"].append(cuda_ms(plain, 5))
         return want
 
@@ -488,7 +522,8 @@ def kernel_phase(store, table):
     med = {k: statistics.median(v) for k, v in times.items()}
     bounds = {k: median_bound(v) for k, v in bounds.items()}
     for name in ("K1", "K2"):
-        say(f"kernels: {name} {med[name]:.4f} ms, plain "
+        say(f"kernels: {name} {med[name]:.4f} ms (held "
+            f"{med[name + '_held']:.4f} ms), plain "
             f"{med[name + '_plain']:.4f} ms (median of {len(picks)} chunks); "
             f"{bounds[name]['bytes']} B, bound {bounds[name]['bound_ms']:.4f} "
             f"ms ({bounds[name]['bound_by']})")
@@ -594,11 +629,19 @@ def single_bound(k, args, wp):
 
 def column_floor(k, args, wp):
     """The sector floor of K3 (k "K3": `kernel_inputs` args a, b, o1, o2,
-    n) or of K4's kernel (table, b, rows1, o1, o2, n; T2's too)."""
+    n), of K5 ("K5": lines, rows1, rows2, o1, o2, n: both sides' distinct
+    rows in whole sectors, no column input) or of K4's kernel (table, b,
+    rows1, o1, o2, n; T1's and T2's too)."""
+    import torch
     if k == "K3":
         a, _, o1, o2, n = args
         return sector_floor(len(n), column_sectors(o1, n, a.shape[0])
                             + column_sectors(o2, n, a.shape[0]), 0, 0)
+    if k == "K5":
+        _, r1, r2, _, _, n = args
+        return sector_floor(len(n), 0, fetched_sectors(wp, torch.cat((r1,
+                                                                       r2))),
+                            8)
     _, b, r1, _, o2, n = args
     return sector_floor(len(n), column_sectors(o2, n, b.shape[0]),
                         fetched_sectors(wp, r1), 4)
@@ -642,13 +685,15 @@ def single_edge_cases(pa, errs, seed=3):
     32 words, K4 with read2's columns of 17 (the packed table) and 32 words
     (the line table); windows up to one word past the row (K3, K4, K6
     against the plain check over rows padded with two zero words); K7
-    windows longer than its W compared words.  The controls of K3 and K4
-    (`_direct`) take the same cases."""
+    windows longer than its W compared words; K3 and K4 on columns of 257
+    and 300 words, and the paths fused and fused_t on rows of 257 words
+    (F1: the one-thread-a-pair kernel, counted under the wrapper).  The
+    controls of K3 and K4 (`_direct`) take the same cases."""
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.overlap import pallas_kernel as pk
-    from disco_tpu_torch.overlap.verify import align_window
+    from disco_tpu_torch.overlap.verify import align_window, verify_windows
     rng = np.random.default_rng(seed)
     n_rows, wp = pa.shape
     lines = {32: torch.from_numpy(fk.pack_lines(pa.cpu().numpy().view(
@@ -717,6 +762,49 @@ def single_edge_cases(pa, errs, seed=3):
                   f"K3 batch of {w}-word rows: all one answer")
             run("K3", fk.fused_compare(*cols, *g), want)
             run("K3_direct", fk.fused_compare_direct(*cols, *g), want)
+    # columns wider than the tiled kernels take (F1): the wrappers launch
+    # the one-thread-a-pair kernel and count it as their own
+    for w in (257, 300):
+        table = torch.from_numpy(rng.integers(
+            0, 2 ** 32, (1024, w), dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).to(DEVICE)
+        rows1, rows2, o1, o2, _ = edge_pairs(rng, 1024, w, 3001)
+        n = np.minimum(16 * (w - 1) - np.maximum(o1, o2),
+                       rng.integers(0, 16 * w, len(o1)))
+        n[::7] = 0
+        cols = [table[t(r).long()].T.contiguous() for r in (rows1, rows2)]
+        g = [t(x) for x in (o1, o2, n)]
+        for name, fn, control, args, plain in (
+                ("K3", fk.fused_compare, fk.fused_compare_direct,
+                 (*cols, *g), fk.fused_compare_plain),
+                ("K4", fk.fused_compare_fetch, fk.fused_compare_fetch_direct,
+                 (table, cols[1], t(rows1), *g),
+                 fk.fused_compare_fetch_plain)):
+            before = (fn.launches, control.launches)
+            want = plain(*args)
+            check(bool(want.any()) and not bool(want.all()),
+                  f"{name} batch of {w}-word columns: all one answer")
+            run(name, fn(*args), want)
+            check((fn.launches, control.launches) == (before[0] + 1,
+                                                      before[1]),
+                  f"{name} on {w}-word columns: the launch was not counted "
+                  "under its wrapper")
+        if w > 257:
+            continue
+        # the paths fused and fused_t at this width, against the plain
+        # verify_windows; each launches K3 once, counted as fused_compare's
+        want = verify_windows(table, t(rows1), t(rows2), *g, n_words=w - 1)
+        for name, fn, tbl in (
+                ("fused", fk.verify_windows_fused, table),
+                ("fused_t", fk.verify_windows_fused_t, table.T.contiguous())):
+            before = (fk.fused_compare.launches,
+                      fk.fused_compare_direct.launches)
+            run("K3", fn(tbl, t(rows1), t(rows2), *g, n_words=w - 1), want)
+            check((fk.fused_compare.launches,
+                   fk.fused_compare_direct.launches) == (before[0] + 1,
+                                                         before[1]),
+                  f"path {name} on {w}-word rows: K3's launch was not "
+                  "counted under fused_compare")
     # past the row: K3 on packed_all, K4 and K6 on their line tables
     for name, table in (("K3", pa), ("K4", lines[32].view(-1, 32)),
                         ("K6", lines[16].view(-1, 16))):
@@ -745,9 +833,11 @@ def single_edge_cases(pa, errs, seed=3):
     say(f"verify: edge-case batches (P = {', '.join(map(str, sizes))}; "
         "every bit phase, n = 0 and a tile of n = 0, K4 in both table forms "
         "(Wb = 32 and 17) with rows1 sorted and not, K3 on rows of 2, 17 "
-        "and 32 words, K7 windows longer than its words, windows up to one "
-        "word past the row): K3, K4, their _direct controls, K6, K7 == "
-        "plain")
+        "and 32 words, K3 and K4 on columns of 257 and 300 words through "
+        "the one-thread-a-pair kernel counted as theirs, the paths fused and "
+        "fused_t on rows of 257 words, K7 windows longer "
+        "than its words, windows up to one word past the row): K3, K4, "
+        "their _direct controls, K6, K7 == plain")
 
 
 def verify_paths_phase(fasta, min_ovl):
@@ -881,6 +971,8 @@ def verify_paths_phase(fasta, min_ovl):
                 if control is None:
                     times.setdefault(k, []).append(
                         cuda_ms(lambda: fn(*a, **kw), 20))
+                    times.setdefault(k + "_held", []).append(
+                        cuda_ms(lambda: fn(*a, **kw), 20, hold=True))
                     times.setdefault(k + "_plain", []).append(
                         cuda_ms(lambda: plain(*a, **kw), 5))
                     continue
@@ -897,7 +989,9 @@ def verify_paths_phase(fasta, min_ovl):
     bounds = {k: median_bound(v) for k, v in bounds.items()}
     floors = {k: median_bound(v, "sector_bytes") for k, v in floors.items()}
     for k, name, _ in SINGLE_KERNELS:
-        say(f"verify: {k} {name} {med[k]:.4f} ms, plain "
+        held = (f" (held {med[k + '_held']:.4f} ms)"
+                if k + "_held" in med else "")
+        say(f"verify: {k} {name} {med[k]:.4f} ms{held}, plain "
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
@@ -930,12 +1024,26 @@ def fetch_kernels():
             "T2": fv.verify_pipe_nc, "T3": mf.fetch_checksum}
 
 
+def unpipelined_controls():
+    """id -> wrapper of the controls of K5 and T1: their kernels before the
+    copies overlapped the compares."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_fetch_variants as fv
+    return {"K5": fk.verify_windows_fused_mxu_both_unpipelined,
+            "T1": fv.verify_sync_unpipelined}
+
+
+# phase 8's timing controls: the kernel id -> the control's name
+FETCH_CONTROLS = {"K5": "unpipelined", "T1": "unpipelined", "T2": "direct"}
+
+
 def fetch_inputs(d, sl, wp):
-    """Each phase 8 kernel's launch, plain version, arguments and bound at
-    pairs `sl`: K5 on the relabeled 32-word table, T1's and T2's launches
-    on the (lines, packed) tables with read2's columns gathered, T3 on the
-    r1-sorted rows with salt 0.  The launches time the kernels alone: T1 and
-    T2 gather read2's columns first, as K4's wrapper does."""
+    """Each phase 8 kernel's launch, plain version, arguments, bound and
+    timing control (None for T3) at pairs `sl`: K5 on the relabeled 32-word
+    table, T1's and T2's launches on the (lines, packed) tables with read2's
+    columns gathered, T3 on the r1-sorted rows with salt 0.  The launches
+    time the kernels alone: T1 and T2 gather read2's columns first, as
+    K4's wrapper does."""
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.tools import exp_fetch_variants as fv
     from disco_tpu_torch.tools import exp_mxu_fetch as mf
@@ -952,25 +1060,41 @@ def fetch_inputs(d, sl, wp):
                    *a, n_words=nw),
                (d["lines_relab"], q1, q2, p1, p2, pn),
                window_bound(p, 0, 4 * wp * distinct(q1, q2), 8,
-                            compared_words(pn))),
+                            compared_words(pn)),
+               lambda *a: fk.verify_windows_fused_mxu_both_unpipelined(
+                   *a, n_words=nw)),
         "T1": (lambda *a: fv.compare_staged(*a)[0],
-               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1),
+               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1,
+               lambda *a: fv.compare_staged_unpipelined(*a)[0]),
         "T2": (lambda *a: fk.compare_fetch(*a)[0],
-               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1),
+               fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1,
+               fk.fused_compare_fetch_direct),
         "T3": (mf.fetch_checksum, mf.fetch_checksum_plain,
                (d["packed"], r1, bases, 0),
                bound(p * 8 + 4 * len(bases) + 4 * wp * distinct(r1),
-                     2 * wp * p)),
+                     2 * wp * p), None),
     }
 
 
+def window_rule_counts(kern, n_rows, r1, r2=None):
+    """The window rule's count of K5's (kern "K5": both sides) or T1's row
+    reads outside their windows, as a python int."""
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_fetch_variants as fv
+    if kern == "K5":
+        return int(fk._both_misses(n_rows, r1, r2))
+    return int(fv.sync_misses(n_rows, r1))
+
+
 def fetch_edge_cases(pa, errs, seed=5):
-    """K5, T1, T2 and T3 against their plain versions on synthetic batches
-    over random 32-word rows (so that the words past the staged ones come
-    from device memory): every bit phase, n = 0, P = 1 and 3001, sorted
-    rows and random rows (outside every window), windows up to one word
-    past the compared row (the plain check over rows padded with two zero
-    words), and T3 on rows past both ends of the table."""
+    """K5, T1, T2 and T3, and the controls of K5 and T1, against their plain
+    versions on synthetic batches over random 32-word rows (so that the
+    words past the staged ones come from device memory): every bit phase,
+    n = 0, P = 1, 255, 1023, 1025, 3001 and past K5's and T1's rings,
+    sorted rows and random rows (outside every window), K5's and T1's
+    out-of-window row reads equal to their rules' counts, windows up to one
+    word past the compared row (the plain check over rows padded with two
+    zero words), and T3 on rows past both ends of the table."""
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -982,6 +1106,7 @@ def fetch_edge_cases(pa, errs, seed=5):
         0, 2 ** 32, (n_rows // 4, 128), dtype=np.uint64).astype(
             np.uint32).view(np.int32)).to(DEVICE)
     table = lines.view(-1, 32)
+    controls = unpipelined_controls()
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(DEVICE)
@@ -995,13 +1120,29 @@ def fetch_edge_cases(pa, errs, seed=5):
                         f"{int((got != want).sum())} of {len(got)} {what}")
         errs[name] = max(errs.get(name, 0), err)
 
+    def staged(k, fn, args, want, rule):
+        """K5 or T1 (fn its kernel or control) == plain, and its count of
+        row reads outside the windows == the rule's."""
+        name = k if fn is fetch_kernels()[k] else k + "_unpipelined"
+        kw = {"n_words": 16} if k == "K5" else {}
+        run(name, fn(*args, **kw), want, "pairs")
+        got = int(fn.out_of_window)
+        check(got == rule, f"{name}: {got} row reads outside its windows, "
+                           f"its rule counts {rule}")
+        return got
+
+    rings = max(tile * blocks * stages + 5 for tile, blocks, stages in (
+        fk.staged_shape("T1", 32, 32, 1 << 40),
+        fk.staged_shape("K5", 0, 17, 1 << 40)))
+    sizes = (1, 255, 1023, 1025, 3001, rings)
     missed = {k: 0 for k in ("K5", "T1", "T3")}
-    for p in (1, 3001):
+    for p in sizes:
         for order in ("sorted", "random"):
             i = np.arange(p)
             rows1 = rng.integers(0, n_rows, p)
             if order == "sorted":
-                rows1 = np.sort(rng.integers(0, 200, p))
+                rows1 = np.sort(rng.integers(0, min(n_rows, 200 + p // 64),
+                                             p))
             rows2 = np.where(i % 4 == 0, rows1, rng.integers(0, n_rows, p))
             o1 = rng.integers(0, 16 * 20, p) & ~15 | (i & 15)
             o2 = np.where(i % 4 == 0, o1,
@@ -1010,16 +1151,19 @@ def fetch_edge_cases(pa, errs, seed=5):
                            rng.integers(0, 300, p))
             n[::7] = 0
             r1, r2, g = t(rows1), t(rows2), [t(x) for x in (o1, o2, n)]
-            run("K5", fk.verify_windows_fused_mxu_both(lines, r1, r2, *g,
-                                                       n_words=16),
-                fk.verify_windows_fused_mxu_both_plain(lines, r1, r2, *g,
-                                                       n_words=16), "pairs")
-            missed["K5"] += int(fk.verify_windows_fused_mxu_both.out_of_window)
-            run("T1", fv.verify_sync(lines, table, r1, r2, *g),
-                fv.verify_sync_plain(lines, table, r1, r2, *g), "pairs")
-            missed["T1"] += int(fv.verify_sync.out_of_window)
-            run("T2", fv.verify_pipe_nc(lines, table, r1, r2, *g),
-                fv.verify_sync_plain(lines, table, r1, r2, *g), "pairs")
+            want = fk.verify_windows_fused_mxu_both_plain(lines, r1, r2, *g,
+                                                          n_words=16)
+            rule = window_rule_counts("K5", n_rows, r1, r2)
+            for fn in (fk.verify_windows_fused_mxu_both, controls["K5"]):
+                missed["K5"] += staged("K5", fn, (lines, r1, r2, *g), want,
+                                       rule)
+            want = fv.verify_sync_plain(lines, table, r1, r2, *g)
+            rule = window_rule_counts("T1", n_rows, r1)
+            for fn in (fv.verify_sync, controls["T1"]):
+                missed["T1"] += staged("T1", fn, (lines, table, r1, r2, *g),
+                                       want, rule)
+            run("T2", fv.verify_pipe_nc(lines, table, r1, r2, *g), want,
+                "pairs")
             bases = t(np.sort(rows1)[::fk.TILE])
             rows = t(rows1 + rng.integers(-1, 2, p) * (i % 50 == 0) * n_rows)
             for salt in (0, 1):
@@ -1038,22 +1182,28 @@ def fetch_edge_cases(pa, errs, seed=5):
         want = fk.window_check_plain(padded[r1.long()], padded[r2.long()],
                                      *g)
         if name == "K5":
-            got = fk.verify_windows_fused_mxu_both(lines, r1, r2, *g,
-                                                   n_words=16)
+            for fn in (fk.verify_windows_fused_mxu_both, controls["K5"]):
+                staged("K5", fn, (lines, r1, r2, *g), want,
+                       window_rule_counts("K5", n_rows, r1, r2))
+        elif name == "T1":
+            for fn in (fv.verify_sync, controls["T1"]):
+                staged("T1", fn, (lines, table, r1, r2, *g), want,
+                       window_rule_counts("T1", n_rows, r1))
         else:
-            fn = fv.verify_sync if name == "T1" else fv.verify_pipe_nc
-            got = fn(lines, table, r1, r2, *g)
-        run(name, got, want, "past-row pairs")
-    say("fetch: edge-case batches (P = 1 and 3001, every bit phase, n = 0, "
-        "sorted and random rows, windows up to one word past the row, T3 "
-        "rows past the table, salt 0 and 1): K5, T1, T2, T3 == plain; "
-        "out-of-window row reads on them " + ", ".join(
-            f"{k} {m}" for k, m in missed.items()))
+            run(name, fv.verify_pipe_nc(lines, table, r1, r2, *g), want,
+                "past-row pairs")
+    say(f"fetch: edge-case batches (P = {', '.join(map(str, sizes))}; every "
+        "bit phase, n = 0, sorted and random rows, windows up to one word "
+        "past the row, T3 rows past the table, salt 0 and 1): K5, T1, their "
+        "_unpipelined controls, T2, T3 == plain, and K5's and T1's row "
+        "reads outside their windows == their rules' counts; out-of-window "
+        "row reads on them " + ", ".join(f"{k} {m}"
+                                         for k, m in missed.items()))
 
 
 def fetch_phase(batch, wls, want, odd):
-    """Phase 8.  Returns (times, errs, launches, bounds) keyed by kernel
-    id."""
+    """Phase 8.  Returns (times, errs, launches, bounds, floors) keyed by
+    kernel id."""
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -1074,6 +1224,8 @@ def fetch_phase(batch, wls, want, odd):
              pa.cpu().numpy().view(np.uint32))[0].view(np.int32)).to(DEVICE),
          "lines_relab": torch.from_numpy(fk.pack_lines(
              relab.packed)[0].view(np.int32)).to(DEVICE)}
+    n_rows = {"T1": d["lines"].numel() // fk.W32,
+              "K5": d["lines_relab"].numel() // fk.W32}
     n_pairs = len(orig.n)
     slices = [slice(s, min(s + VERIFY_SLICE, n_pairs))
               for s in range(0, n_pairs, VERIFY_SLICE)]
@@ -1084,7 +1236,8 @@ def fetch_phase(batch, wls, want, odd):
         "tables of the batch and of phase 7's relabel)")
 
     kern = fetch_kernels()
-    for k in kern.values():
+    controls = unpipelined_controls()
+    for k in (*kern.values(), *controls.values()):
         k.launches = 0
     misses = {"K5": 0, "T1": 0, "T3": 0}
     t0 = time.perf_counter()
@@ -1108,6 +1261,14 @@ def fetch_phase(batch, wls, want, odd):
             }
             for k, m in misses.items():
                 misses[k] = m + int(kern[k].out_of_window)
+            for k, rule in (("K5", window_rule_counts(
+                    "K5", n_rows["K5"], q1[sl], q2[sl])),
+                            ("T1", window_rule_counts("T1", n_rows["T1"],
+                                                      r1[sl]))):
+                c = int(kern[k].out_of_window)
+                check(c == rule, f"{k}: {c} row reads outside its windows "
+                                 f"on slice {sl.start}:{sl.stop}, its rule "
+                                 f"counts {rule}")
             for k, (g, w) in got.items():
                 check(g.dtype == w.dtype and g.shape == w.shape,
                       f"{k}: output {g.dtype} {tuple(g.shape)}")
@@ -1126,59 +1287,80 @@ def fetch_phase(batch, wls, want, odd):
         f"{k} {c}" for k, c in launches.items()))
     say("fetch: out-of-window row reads over the batch (both passes): " +
         ", ".join(f"{k} {m} of {2 * n_pairs * (2 if k == 'K5' else 1)}"
-                  for k, m in misses.items()))
+                  for k, m in misses.items()) +
+        "; K5's and T1's == their window rules' counts on every slice")
     for k, c in launches.items():
         check(c > 0, f"the fetch experiments never launched {k}")
+    for k, f in controls.items():
+        check(f.launches == 0, f"the fetch experiments launched {k}'s "
+                               "control")
 
+    # each kernel against its plain version, and the times, at P = 2^22;
+    # K5, T1 and T2 in turns with their controls, as made and moved
     full = [sl for sl in slices if sl.stop - sl.start == VERIFY_SLICE]
     picks = [full[int(i)] for i in
              sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
+    d_moved = dict(d, batch=(r1, r2, o1, o2 + odd, n),
+                   relab=(q1, q2, p1, p2 + odd[perm], pn))
     times, errs, bounds, floors = {}, {}, {}, {}
-    # T2 runs K4's kernel: its control is K4's
-    controls = {"T2": fk.fused_compare_fetch_direct}
     for sl in picks:
-        for k, (fn, plain, args, bd) in fetch_inputs(d, sl, wp).items():
-            ref = plain(*args)
-            control = controls.get(k)
-            for name, f in ((k, fn), (k + "_direct", control)):
-                if f is None:
-                    continue
-                got = f(*args)
-                torch.cuda.synchronize()
-                err = int((got.long() - ref.long()).abs().max())
-                check(err == 0, f"{name} disagrees with its plain version "
-                                f"on {int((got != ref).sum())} pairs of "
-                                f"slice {sl.start}:{sl.stop}")
-                errs[name] = max(errs.get(name, 0), err)
+        moved = fetch_inputs(d_moved, sl, wp)
+        for k, (fn, plain, args, bd, control) in fetch_inputs(
+                d, sl, wp).items():
             bounds.setdefault(k, []).append(bd)
-            if control is None:
-                times.setdefault(k, []).append(cuda_ms(lambda: fn(*args),
-                                                       20))
-                times.setdefault(k + "_plain", []).append(
-                    cuda_ms(lambda: plain(*args), 5))
-                continue
-            floors.setdefault(k, []).append(column_floor(k, args, wp))
-            k_ms, c_ms, p_ms = time_turns(lambda: fn(*args),
-                                          lambda: control(*args),
-                                          lambda: plain(*args))
-            times.setdefault(k, []).append(k_ms)
-            times.setdefault(k + "_direct", []).append(c_ms)
-            times.setdefault(k + "_plain", []).append(p_ms)
+            if control is not None:
+                floors.setdefault(k, []).append(column_floor(k, args, wp))
+            ctl = f"_{FETCH_CONTROLS.get(k)}"
+            for tag, a in (("", args), ("_moved", moved[k][2])):
+                if control is None and tag:
+                    continue
+                ref = plain(*a)
+                for name, f in ((k, fn), (k + ctl, control)):
+                    if f is None:
+                        continue
+                    got = f(*a)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - ref.long()).abs().max())
+                    check(err == 0, f"{name} disagrees with its plain "
+                                    f"version on {int((got != ref).sum())} "
+                                    f"pairs of slice {sl.start}:{sl.stop}"
+                                    f"{tag}")
+                    errs[name] = max(errs.get(name, 0), err)
+                if control is None:
+                    times.setdefault(k, []).append(
+                        cuda_ms(lambda: fn(*a), 20))
+                    times.setdefault(k + "_held", []).append(
+                        cuda_ms(lambda: fn(*a), 20, hold=True))
+                    times.setdefault(k + "_plain", []).append(
+                        cuda_ms(lambda: plain(*a), 5))
+                    continue
+                k_ms, c_ms, p_ms = time_turns(
+                    lambda: fn(*a), lambda: control(*a),
+                    None if tag else (lambda: plain(*a)))
+                times.setdefault(k + tag, []).append(k_ms)
+                times.setdefault(k + ctl + tag, []).append(c_ms)
+                if p_ms is not None:
+                    times.setdefault(k + "_plain", []).append(p_ms)
     med = {k: statistics.median(v) for k, v in times.items()}
     bounds = {k: median_bound(v) for k, v in bounds.items()}
     floors = {k: median_bound(v, "sector_bytes") for k, v in floors.items()}
     for k, name, _, _ in FETCH_KERNELS:
-        say(f"fetch: {k} {name} {med[k]:.4f} ms, plain "
+        held = (f" (held {med[k + '_held']:.4f} ms)"
+                if k + "_held" in med else "")
+        say(f"fetch: {k} {name} {med[k]:.4f} ms{held}, plain "
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
         if k in floors:
-            say(f"fetch: {k} in turns with its control: tiled "
-                f"{med[k]:.4f} ms, direct {med[k + '_direct']:.4f} ms; "
-                f"sector floor {floors[k]['sector_bytes']} B, "
+            ctl = FETCH_CONTROLS[k]
+            say(f"fetch: {k} in turns with its control: {med[k]:.4f} ms "
+                f"(moved {med[k + '_moved']:.4f}), {ctl} "
+                f"{med[k + '_' + ctl]:.4f} ms (moved "
+                f"{med[k + '_' + ctl + '_moved']:.4f}); sector floor "
+                f"{floors[k]['sector_bytes']} B, "
                 f"{floors[k]['sector_floor_ms']:.4f} ms")
     fetch_edge_cases(pa, errs)
-    del d, orig, rdev, row_sums
+    del d, d_moved, orig, rdev, row_sums
     torch.cuda.empty_cache()
     return med, errs, launches, bounds, floors
 
@@ -1251,7 +1433,7 @@ def ptxas_report(source, names):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"(window_[a-z_]*_kernel)", m.group(1))
+            k = re.search(r"((?:window|row)_[a-z_]*_kernel)", m.group(1))
             fn = k.group(1) if k else None
             continue
         if fn not in names:
@@ -1310,25 +1492,37 @@ def main(argv=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    tiled = ("window_compare_kernel", "window_compare_fetch_kernel")
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("dual_compare.cu (nvcc, sm_90a)", fk.load),
             ("window_compare.cu (nvcc, sm_90a)", fk.load_window),
             ("window_staged.cu (nvcc, sm_90a)", fk.load_staged),
             ("host libraries (g++)", native.build_all))}
-        report = pool.submit(ptxas_report, "window_compare.cu", tiled)
+        reports = [pool.submit(ptxas_report, source, names)
+                   for source, names in PTXAS_KERNELS.items()]
         done = {name: f.result() for name, f in builds.items()}
-        report = report.result()
+        report = {k: v for f in reports for k, v in f.result().items()}
     say(f"build: {time.perf_counter() - t0:.2f} s in all: " + ", ".join(
         f"{name} {t:.2f} s" for name, t in done.items()))
+    shapes = {  # at the main path's widths: Wp = 17, fused_mxu's Wb = 32
+        "window_compare_kernel": ("K3", fk.tiled_shape(17, 0, 1 << 22)),
+        "window_compare_fetch_kernel": ("K4, T2",
+                                        fk.tiled_shape(32, 32, 1 << 22)),
+        "window_compare_anchored_kernel": ("T1", fk.staged_shape(
+            "T1", 17, 17, 1 << 22)),
+        "window_compare_ring_both_kernel": ("K5", fk.staged_shape(
+            "K5", 0, 17, 1 << 22)),
+        "window_compare_staged_kernel": ("T1's control", None),
+        "window_compare_staged_both_kernel": ("K5's control", None),
+        "row_checksum_staged_kernel": ("T3", None)}
     for k, (regs, smem, st, ld) in report.items():
-        words, table_words = (32, 32) if "fetch" in k else (17, 0)
-        tile, blocks, stages = fk.tiled_shape(words, table_words, 1 << 22)
-        say(f"build: ptxas -v {k}: {regs} registers, {smem} B static shared "
-            f"memory, spills {st} B stored and {ld} B loaded; at {words}-word "
-            f"columns (fused and fused_mxu) {tile} pairs a tile, {stages} "
-            f"stages, {blocks} blocks")
+        kid, shape = shapes[k]
+        where = ("one block of 256 threads a 1024-pair tile" if shape is None
+                 else "{} pairs a tile, {} stages, {} blocks".format(
+                     shape[0], shape[2], shape[1]))
+        say(f"build: ptxas -v {k} ({kid}): {regs} registers, {smem} B static "
+            f"shared memory, spills {st} B stored and {ld} B loaded; at the "
+            f"main path's widths {where}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         tmp = pathlib.Path(tmpdir)
@@ -1445,12 +1639,20 @@ def main(argv=None) -> int:
              "ms": times[k], "plain_ms": times[k + "_plain"],
              "bytes": bd["bytes"], "bound_ms": bd["bound_ms"],
              "bound_by": bd["bound_by"], "library_ms": None}
-        if floors and k in floors:      # K3, K4, T2: the control, the floor
-            e.update(floors[k], direct_ms=times[k + "_direct"],
-                     direct_max_abs_err=errs[k + "_direct"])
-            if k + "_moved" in times:
-                e.update(ms_moved=times[k + "_moved"],
-                         direct_ms_moved=times[k + "_direct_moved"])
+        if k + "_held" in times:        # K1, K2, K6, K7, T3
+            e["held_ms"] = times[k + "_held"]
+        if floors and k in floors:      # K3, K4, K5, T1, T2: the control
+            ctl = FETCH_CONTROLS.get(k, "direct")
+            e.update(floors[k], **{
+                f"{ctl}_ms": times[f"{k}_{ctl}"],
+                f"{ctl}_max_abs_err": errs[f"{k}_{ctl}"],
+                "ms_moved": times[k + "_moved"],
+                f"{ctl}_ms_moved": times[f"{k}_{ctl}_moved"]})
+        for kernel, (kid, _) in shapes.items():
+            if k in kid.split(", "):
+                regs, smem, st, ld = report[kernel]
+                e.update(registers=regs, spill_store_bytes=st,
+                         spill_load_bytes=ld)
         return e
 
     kernels = [

@@ -1,7 +1,7 @@
 // Row readers and the packed-window compare shared by the window-check
 // kernels (dual_compare.cu, window_compare.cu, window_staged.cu), the
-// staged row window of window_staged.cu, and the tiles of column inputs of
-// window_compare.cu.
+// staged row windows of window_staged.cu and of the ring of tiles
+// (tile_ring.cuh), and the tiles of column inputs of that ring.
 //
 // Reads are 2-bit bases packed 16 to a uint32 word, base i in bits
 // [30 - 2(i%16), 32 - 2(i%16)) of word i/16.  A word index outside the row
@@ -147,6 +147,37 @@ __device__ __forceinline__ void stage_rows(const RowWindow& w,
   }
 }
 
+// stage_rows with no division for each copy: thread i starts at word i of
+// the window's rows laid end to end and steps blockDim.x words, carrying
+// its row and column (a block does not divide into 17-word rows, and a
+// division by a width known only at run time is a sequence of
+// instructions, where the step is two adds).
+__device__ __forceinline__ void stage_rows_stepped(const RowWindow& w,
+                                                   const uint32_t* table,
+                                                   int wt) {
+  const int total = w.rows * w.ws;
+  int i = threadIdx.x;
+  if (i >= total) return;
+  const int T = blockDim.x;
+  const int dk = T / w.ws, dc = T - dk * w.ws;
+  int k = i / w.ws, c = i - k * w.ws;
+  uint32_t* dst = w.smem + k * w.stride + c;
+  const uint32_t* src = table + (w.base + k) * wt + c;
+  const int64_t src_step = static_cast<int64_t>(dk) * wt + dc;
+  const int dst_step = dk * w.stride + dc;
+  for (; i < total; i += T) {
+    cp_async4(dst, src);
+    dst += dst_step;
+    src += src_step;
+    c += dc;
+    if (c >= w.ws) {        // into the next row
+      c -= w.ws;
+      dst += w.stride - w.ws;
+      src += wt - w.ws;
+    }
+  }
+}
+
 // Word w of one row: the staged copy for w < ws, device memory for
 // ws <= w < words, 0 past `words` (the compared width) or for a row outside
 // the table.
@@ -176,6 +207,17 @@ __device__ __forceinline__ StagedRow staged_row(const RowWindow& w,
   return StagedRow{staged ? w.smem + k * w.stride : nullptr,
                    table + (in_table ? r * wt : 0),
                    staged ? min(w.ws, words) : 0, in_table ? words : 0};
+}
+
+// staged_row for a caller that counts its misses itself.  Built on
+// staged_row and not the other way round: that cost T3's kernel two
+// registers.
+__device__ __forceinline__ StagedRow staged_row_at(const RowWindow& w,
+                                                   const uint32_t* table,
+                                                   int64_t n_rows, int wt,
+                                                   int words, int64_t r) {
+  int unused = 0;
+  return staged_row(w, table, n_rows, wt, words, r, unused);
 }
 
 // Block-wide min and max of one int64 a thread (kThreads threads); every
@@ -225,13 +267,18 @@ struct TileSpan {
   int lo, hi;
 };
 
+// The span of no pair: lo > hi, and a min/max over pairs starts from it.
+__device__ __forceinline__ TileSpan no_span() {
+  return TileSpan{0x7FFFFFFF, static_cast<int>(0x80000000u)};
+}
+
 // The words window_equal_at reads of a row for a window of n bases at base
 // offset o: o >> 4 to (o >> 4) + ceil(n / 16), its one-past word included.
 // A pair with n <= 0, or not `live`, reads none: INT_MAX and INT_MIN.
 __device__ __forceinline__ TileSpan pair_words(int o, int n, bool live) {
   return live && n > 0
              ? TileSpan{o >> 4, (o >> 4) + (n >> 4) + ((n & 15) != 0)}
-             : TileSpan{0x7FFFFFFF, static_cast<int>(0x80000000u)};
+             : no_span();
 }
 
 // Block-wide least lo and greatest hi of each of K spans (every thread gets
@@ -339,6 +386,32 @@ __device__ __forceinline__ bool staged_window_equal(const uint32_t* pa,
   const uint32_t mask = 0xFFFFFFFFu << (2 * (16 - rem));
   return ((__funnelshift_l(pa[step_a], a_cur, s1) ^
            __funnelshift_l(pb[step_b], b_cur, s2)) & mask) == 0;
+}
+
+// staged_window_equal for two rows at stride 1 and a window of at most
+// kMax compared words (n <= 16 kMax): every word is read and compared
+// without an early exit, the loop unrolled, so that a thread's shared
+// loads do not each wait on the compare before them (with the early exit,
+// each word cost a shared-memory latency).
+template <int kMax>
+__device__ __forceinline__ bool staged_rows_equal(const uint32_t* pa, int s1,
+                                                  const uint32_t* pb, int s2,
+                                                  int n) {
+  const int nw = (n >> 4) + ((n & 15) != 0);
+  const uint32_t last = 0xFFFFFFFFu << (2 * (16 * nw - n));
+  uint32_t a_cur = pa[0], b_cur = pb[0], diff = 0;
+#pragma unroll
+  for (int i = 1; i <= kMax; ++i) {
+    if (i <= nw) {
+      const uint32_t a_nxt = pa[i], b_nxt = pb[i];
+      const uint32_t x = __funnelshift_l(a_nxt, a_cur, s1) ^
+                         __funnelshift_l(b_nxt, b_cur, s2);
+      diff |= i == nw ? x & last : x;
+      a_cur = a_nxt;
+      b_cur = b_nxt;
+    }
+  }
+  return diff == 0;
 }
 
 // Word w of one pair's row from its tile's staged rows (s = the stage's

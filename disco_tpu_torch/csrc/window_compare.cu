@@ -34,7 +34,8 @@
 // a group of 8 neighbouring pairs the windows cover nearly every word of
 // the row (67.6 of 68 B at 250 bp), so the least a kernel can read is the
 // whole rows the tile's windows reach.  The tiled design reads just that,
-// in whole lines, with many copies in flight:
+// in whole lines, with many copies in flight, on the ring of tiles of
+// tile_ring.cuh (shared with window_staged.cu's T1):
 //   - a tile is T pairs (256; fewer for wide rows, so that the stages fit
 //     the 227 KB of shared memory), one thread each.  Its staged rows of a
 //     column input are those window_equal_at reads (window.cuh pair_words,
@@ -44,18 +45,7 @@
 //     smem[w * T + p]: a warp's 32 threads read 32 banks;
 //   - the copy is 16-B cp.async.cg, neighbouring threads on neighbouring
 //     chunks of a row (4-B copies where a row starts misaligned, P % 4 != 0,
-//     or at the end of P).  Not TMA: a tile's row range changes from tile
-//     to tile (a box per row, or a tensor map per range), P % 4 != 0 rules
-//     out a tensor map, and the copy is spread over all the block's
-//     threads anyway; what matters is the bytes in flight, which cp.async
-//     gives;
-//   - a persistent grid of as many blocks as fit on the SMs, each walking
-//     tiles blockIdx.x, + gridDim.x, ...: a ring of two stages keeps the
-//     next tile's copies in flight while a tile is compared, and each
-//     tile's geometry is loaded two steps before its row range is needed
-//     (loaded one step before, the wait on it came to a device-memory
-//     latency a tile).  Two stages let three blocks of 256 pairs share an
-//     SM, which measured faster than three stages and two blocks;
+//     or at the end of P);
 //   - the compare, not the copy, bounds a tile at 24 warps an SM: a window
 //     whose words all lie in the staged rows takes staged_window_equal,
 //     which walks two pointers with no bounds checks and masks only its
@@ -64,16 +54,21 @@
 //     stored four to a 32-bit store.
 // window_compare_fetch stages read2's (Wb, P) columns (for fused_mxu's
 // Wb = 32 columns at 250 bp, rows 0..16: rows 17..31 are never copied) and,
-// in the same stage, the tile's read1 rows of the table: up to kRowCap rows
-// from its least rows1 (window.cuh RowWindow; rows1 is sorted, so a tile of
-// 256 pairs spans some 5-6 rows at E. coli).  A row outside that window,
-// or a word past the staged ones, is read from device memory, so the
-// result is exact for any rows1.  Fetching read1's rows from device memory
-// inside the compare instead, word by word, left the compare waiting on
-// dependent loads at a quarter of the direct kernel's occupancy, and lost
-// to it (PERF.md, PR 5).  It also serves T2
+// in the same stage, the tile's read1 rows of the table: up to 32 rows
+// from its least rows1 (tile_ring.cuh NearestRows; rows1 is sorted, so a
+// tile of 256 pairs spans some 5-6 rows at E. coli).  A row outside that
+// window, or a word past the staged ones, is read from device memory, so
+// the result is exact for any rows1.  Fetching read1's rows from device
+// memory inside the compare instead, word by word, left the compare
+// waiting on dependent loads at a quarter of the direct kernel's
+// occupancy, and lost to it (PERF.md, section 6).  It also serves T2
 // (tools/exp_fetch_variants.py::verify_pipe_nc, K4's Pallas body without
 // its guard).
+//
+// The tiled kernels take column inputs of at most ring::kMaxWords = 256
+// words (4,080 bp), so that a tile of 32 pairs fits its two stages; the
+// wrappers send wider inputs to the one-thread-a-pair kernels, which take
+// any width.
 //
 // The other two kernels, and the _direct controls, run one thread a pair on
 // its own rows:
@@ -94,14 +89,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_ring.cuh"
 #include "window.cuh"
 
 namespace {
 
 using disco::ColumnRow;
-using disco::TileColumn;
-using disco::TileRows;
-using disco::TileSpan;
 using disco::blocks_for;
 using disco::kThreads;
 using disco::table_row;
@@ -109,189 +102,16 @@ using disco::window_equal;
 using disco::window_equal_at;
 
 // ---------------------------------------------------------------------------
-// the tiled kernels (K3, K4)
+// the tiled kernels (K3, K4) on the ring of tile_ring.cuh
 // ---------------------------------------------------------------------------
-constexpr int kStages = 2;       // the tile compared and kStages - 1 in flight
-constexpr int kSlots = kStages + 2;  // tiles whose geometry is held
-constexpr int kMaxTile = 256;    // pairs per tile, one thread each
-// blocks an SM: the stages of three blocks fit at 17 words (K3) and 32 (K4)
-constexpr int kBlocksPerSm = 3;
-constexpr int kMaxWords = 256;   // widest staged column input
-constexpr int kSmemBytes = 232448;  // shared memory a block may use (sm_90)
-constexpr int kRowCap = 32;      // K4: read1 rows staged a tile (RowWindow)
-// tile_spans' scratch, one slot per stage (static shared memory)
-constexpr int kSlotInts = 2 * 2 * 32;
-constexpr int kScratchInts = kStages * kSlotInts;
+namespace ring = disco::ring;
 
-// Words of one stage: the staged column inputs (K3: a and b; K4: b) of
-// `words` rows and T columns, and for K4 a window of kRowCap read1 rows of
-// the first min(wt, kMaxWords) words at an odd stride (window.cuh
-// RowWindow).  A multiple of 4 words, so every stage starts 16-B aligned.
-__host__ __device__ constexpr int stage_words(bool fetch, int words, int wt,
-                                              int T) {
-  return fetch ? words * T + kRowCap * ((wt < kMaxWords ? wt : kMaxWords) | 1)
-               : 2 * words * T;
+// K4 stages the first min(wt, 256) words of each read1 row.
+__host__ __device__ int read1_words(int wt) {
+  return wt < ring::kMaxWords ? wt : ring::kMaxWords;
 }
 
-struct Pair {
-  int o1, o2, n, r1;
-  bool live;  // p < P
-};
-
-__device__ __forceinline__ Pair load_pair(int64_t p, int64_t P,
-                                          const int32_t* __restrict__ o1,
-                                          const int32_t* __restrict__ o2,
-                                          const int32_t* __restrict__ n,
-                                          const int32_t* __restrict__ rows1) {
-  Pair q{0, 0, 0, 0, p < P};
-  if (q.live) {
-    q.o1 = __ldg(o1 + p);
-    q.o2 = __ldg(o2 + p);
-    q.n = __ldg(n + p);
-    if (rows1 != nullptr) q.r1 = __ldg(rows1 + p);
-  }
-  return q;
-}
-
-// The tiles blockIdx.x, blockIdx.x + gridDim.x, ... of T = blockDim.x
-// pairs.  kFetch (K4): read2's (w, P) columns `b` staged, and the tile's
-// read1 rows of `table` staged as a RowWindow from its least rows1 (a row
-// outside the window, or a word past the staged ones, is read from device
-// memory, so the result is exact for any rows1).  Else (K3) both (w, P)
-// column inputs `a` and `b` staged.  smem holds kStages stages of
-// stage_words, scratch kScratchInts ints.
-template <bool kFetch>
-__device__ __forceinline__ void compare_tiles(
-    uint32_t* smem, int* scratch, const uint32_t* __restrict__ a,
-    const uint32_t* __restrict__ table, int64_t n_rows, int wt,
-    const uint32_t* __restrict__ b, int w,
-    const int32_t* __restrict__ rows1, int64_t P,
-    const int32_t* __restrict__ o1, const int32_t* __restrict__ o2,
-    const int32_t* __restrict__ n, uint8_t* __restrict__ ok) {
-  const int T = blockDim.x;
-  const int sw = stage_words(kFetch, w, wt, T);
-  const int wr = wt < kMaxWords ? wt : kMaxWords;  // K4: read1 words staged
-  const int64_t tiles = (P + T - 1) / T;
-  const int64_t step = gridDim.x;
-  const int64_t t0 = blockIdx.x;
-
-  auto pair_of = [&](int64_t tile) {
-    return load_pair(tile * T + threadIdx.x, P, o1, o2, n,
-                     kFetch ? rows1 : nullptr);
-  };
-  // The tile's spans (K3: [0] the words read of a, [1] of b; K4: [0] the
-  // words read of b, [1] the rows of read1); every thread calls this (one
-  // sync).
-  auto spans_of = [&](const Pair& q, int slot, TileSpan(&out)[2]) {
-    TileSpan mine[2];
-    if constexpr (kFetch) {
-      mine[0] = disco::pair_words(q.o2, q.n, q.live);
-      mine[1] = q.live && q.n > 0
-                    ? TileSpan{q.r1, q.r1}
-                    : TileSpan{0x7FFFFFFF, static_cast<int>(0x80000000u)};
-    } else {
-      mine[0] = disco::pair_words(q.o1, q.n, q.live);
-      mine[1] = disco::pair_words(q.o2, q.n, q.live);
-    }
-    disco::tile_spans<2>(mine, scratch + slot * kSlotInts, out);
-  };
-  auto window_of = [&](uint32_t* s, const TileSpan& r) {
-    return disco::row_window(s + w * T, r.lo, r.hi, kRowCap, n_rows, wr);
-  };
-  auto stage = [&](int slot, int64_t tile, const TileSpan(&sp)[2]) {
-    uint32_t* s = smem + slot * sw;
-    if constexpr (kFetch) {
-      disco::stage_columns(s, b, P, tile * T, disco::tile_rows(sp[0], w));
-      disco::stage_rows(window_of(s, sp[1]), table, wt);
-    } else {
-      disco::stage_columns(s, a, P, tile * T, disco::tile_rows(sp[0], w));
-      disco::stage_columns(s + w * T, b, P, tile * T,
-                           disco::tile_rows(sp[1], w));
-    }
-  };
-
-  // Tile j of this block (t0 + j * step) keeps its geometry and spans in
-  // slot j % kSlots and its rows in stage j % kStages.  Iteration j stages
-  // tile j + kStages - 1, loads the geometry of tile j + kStages + 1 into
-  // the slot tile j - 1 freed, and compares tile j: a tile's geometry
-  // arrives two iterations before its spans are taken.  The loop is
-  // unrolled over the slots, so a slot is a fixed set of registers.
-  Pair g[kSlots];
-  TileSpan sp[kSlots][2];
-#pragma unroll
-  for (int j = 0; j < kSlots - 1; ++j) g[j] = pair_of(t0 + j * step);
-#pragma unroll
-  for (int j = 0; j + 1 < kStages; ++j) {
-    spans_of(g[j], j, sp[j]);
-    stage(j, t0 + j * step, sp[j]);
-    disco::cp_async_commit();
-  }
-  int slot = 0;  // the stage of tile j
-  for (int64_t t = t0;; t += kSlots * step) {
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      const int64_t tile = t + j * step;
-      if (tile >= tiles) {
-        disco::cp_async_wait<0>();
-        return;
-      }
-      // tile j + kStages - 1 goes into the stage that tile j - 1 used:
-      // every thread has passed that compare (spans_of syncs first)
-      constexpr int kAhead = kStages - 1;
-      const int ahead = slot == 0 ? kStages - 1 : slot - 1;
-      spans_of(g[(j + kAhead) % kSlots], ahead, sp[(j + kAhead) % kSlots]);
-      stage(ahead, tile + kAhead * step, sp[(j + kAhead) % kSlots]);
-      disco::cp_async_commit();
-      g[(j + kSlots - 1) % kSlots] = pair_of(tile + (kSlots - 1) * step);
-      disco::cp_async_wait<kStages - 1>();
-      __syncthreads();
-
-      // A window whose words all lie in the staged rows takes
-      // staged_window_equal; any other (past the row, outside the row
-      // window) the readers, which give 0 or read device memory.
-      const Pair& q = g[j];
-      uint32_t* s = smem + slot * sw;
-      const int d1 = q.o1 >> 4, d2 = q.o2 >> 4;
-      const int nw = (q.n >> 4) + ((q.n & 15) != 0);
-      bool v;
-      if constexpr (kFetch) {
-        const disco::RowWindow rw = window_of(s, sp[j][1]);
-        const TileRows rb = disco::tile_rows(sp[j][0], w);
-        const int64_t k = static_cast<int64_t>(q.r1) - rw.base;
-        if (q.n > 0 && k >= 0 && k < rw.rows && d1 >= 0 && d1 + nw < rw.ws &&
-            d2 >= rb.lo && d2 + nw < rb.lo + rb.rows) {
-          v = disco::staged_window_equal(
-              rw.smem + k * rw.stride + d1, 1, (q.o1 & 15) << 1,
-              s + (d2 - rb.lo) * T + threadIdx.x, T, (q.o2 & 15) << 1, q.n);
-        } else {
-          int misses = 0;
-          v = window_equal(disco::staged_row(rw, table, n_rows, wt, wt, q.r1,
-                                             misses),
-                           q.o1, TileColumn{s + threadIdx.x, rb, T}, q.o2,
-                           q.n);
-        }
-      } else {
-        const TileRows ra = disco::tile_rows(sp[j][0], w);
-        const TileRows rb = disco::tile_rows(sp[j][1], w);
-        if (q.n > 0 && d1 >= ra.lo && d1 + nw < ra.lo + ra.rows &&
-            d2 >= rb.lo && d2 + nw < rb.lo + rb.rows) {
-          v = disco::staged_window_equal(
-              s + (d1 - ra.lo) * T + threadIdx.x, T, (q.o1 & 15) << 1,
-              s + w * T + (d2 - rb.lo) * T + threadIdx.x, T,
-              (q.o2 & 15) << 1, q.n);
-        } else {
-          v = window_equal(TileColumn{s + threadIdx.x, ra, T}, q.o1,
-                           TileColumn{s + w * T + threadIdx.x, rb, T}, q.o2,
-                           q.n);
-        }
-      }
-      disco::store_flags(ok, tile * T + threadIdx.x, P, v);
-      slot = slot + 1 == kStages ? 0 : slot + 1;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMaxTile, kBlocksPerSm)
+__global__ void __launch_bounds__(ring::kMaxTile, ring::kBlocksPerSm)
 window_compare_kernel(const uint32_t* __restrict__ a,
                       const uint32_t* __restrict__ b, int wp, int64_t P,
                       const int32_t* __restrict__ o1,
@@ -299,12 +119,13 @@ window_compare_kernel(const uint32_t* __restrict__ a,
                       const int32_t* __restrict__ n,
                       uint8_t* __restrict__ ok) {
   extern __shared__ uint4 smem4[];
-  __shared__ int scratch[kScratchInts];
-  compare_tiles<false>(reinterpret_cast<uint32_t*>(smem4), scratch, a,
-                       nullptr, 0, 0, b, wp, nullptr, P, o1, o2, n, ok);
+  __shared__ int scratch[ring::kScratchInts];
+  ring::compare_tiles<ring::Columns>(reinterpret_cast<uint32_t*>(smem4),
+                                     scratch, a, nullptr, 0, 0, 0, b, wp,
+                                     nullptr, P, o1, o2, n, ok, nullptr);
 }
 
-__global__ void __launch_bounds__(kMaxTile, kBlocksPerSm)
+__global__ void __launch_bounds__(ring::kMaxTile, ring::kBlocksPerSm)
 window_compare_fetch_kernel(const uint32_t* __restrict__ table,
                             int64_t n_rows, int wt,
                             const uint32_t* __restrict__ b, int wb,
@@ -314,50 +135,10 @@ window_compare_fetch_kernel(const uint32_t* __restrict__ table,
                             const int32_t* __restrict__ n,
                             uint8_t* __restrict__ ok) {
   extern __shared__ uint4 smem4[];
-  __shared__ int scratch[kScratchInts];
-  compare_tiles<true>(reinterpret_cast<uint32_t*>(smem4), scratch, nullptr,
-                      table, n_rows, wt, b, wb, rows1, P, o1, o2, n, ok);
-}
-
-// Pairs per tile: 256, or the largest multiple of 32 whose kStages stages
-// fit a block's shared memory (32 for K3 at 256 words).
-int tile_pairs(bool fetch, int words, int wt) {
-  const int budget = (kSmemBytes - 4 * kScratchInts) / (4 * kStages);
-  const int fixed = stage_words(fetch, 0, wt, 0);
-  const int per_pair = stage_words(fetch, words > 1 ? words : 1, wt, 1) -
-                       fixed;
-  const int t = (budget - fixed) / per_pair;
-  return t >= kMaxTile ? kMaxTile : t / 32 * 32;
-}
-
-// The launch shape of a tiled kernel: its tile, its dynamic shared memory,
-// and a grid of as many blocks as fit on the card's SMs at that size, but
-// no more than there are tiles.
-template <class Kernel>
-cudaError_t tiled_shape(Kernel kernel, bool fetch, int words, int wt,
-                        int64_t P, int* tile, size_t* smem, unsigned* grid) {
-  if (words < 0 || words > kMaxWords || wt < 0)
-    return cudaErrorInvalidValue;
-  *tile = tile_pairs(fetch, words, wt);
-  *smem = static_cast<size_t>(kStages) * 4 *
-          stage_words(fetch, words, wt, *tile);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(*smem));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, *tile,
-                                                      *smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t tiles = (P + *tile - 1) / *tile;
-  const int64_t most = static_cast<int64_t>(per_sm) * sms;
-  *grid = static_cast<unsigned>(tiles < most ? tiles : most);
-  return cudaSuccess;
+  __shared__ int scratch[ring::kScratchInts];
+  ring::compare_tiles<ring::NearestRows>(
+      reinterpret_cast<uint32_t*>(smem4), scratch, nullptr, table, n_rows,
+      wt, read1_words(wt), b, wb, rows1, P, o1, o2, n, ok, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -451,8 +232,8 @@ int disco_window_compare(const void* a, const void* b, int wp, int64_t P,
   int tile;
   size_t smem;
   unsigned grid;
-  const cudaError_t e = tiled_shape(window_compare_kernel, false, wp, 0, P,
-                                    &tile, &smem, &grid);
+  const cudaError_t e = ring::tiled_shape<ring::Columns>(
+      window_compare_kernel, wp, 0, P, &tile, &smem, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   window_compare_kernel<<<grid, tile, smem, as_stream(stream)>>>(
       u32(a), u32(b), wp, P, i32(o1), i32(o2), i32(n), u8(ok));
@@ -467,8 +248,10 @@ int disco_window_compare_fetch(const void* table, int64_t n_rows, int wt,
   int tile;
   size_t smem;
   unsigned grid;
-  const cudaError_t e = tiled_shape(window_compare_fetch_kernel, true, wb,
-                                    wt, P, &tile, &smem, &grid);
+  if (wt < 0) return cudaErrorInvalidValue;
+  const cudaError_t e = ring::tiled_shape<ring::NearestRows>(
+      window_compare_fetch_kernel, wb, read1_words(wt), P, &tile, &smem,
+      &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   window_compare_fetch_kernel<<<grid, tile, smem, as_stream(stream)>>>(
       u32(table), n_rows, wt, u32(b), wb, i32(rows1), P, i32(o1), i32(o2),
@@ -484,12 +267,13 @@ int disco_window_compare_shape(int words, int wt, int64_t P, int* tile,
   size_t smem;
   unsigned g = 0;
   const cudaError_t e =
-      wt > 0 ? tiled_shape(window_compare_fetch_kernel, true, words, wt, P,
-                           tile, &smem, &g)
-             : tiled_shape(window_compare_kernel, false, words, 0, P, tile,
-                           &smem, &g);
+      wt > 0 ? ring::tiled_shape<ring::NearestRows>(
+                   window_compare_fetch_kernel, words, read1_words(wt), P,
+                   tile, &smem, &g)
+             : ring::tiled_shape<ring::Columns>(window_compare_kernel, words,
+                                                0, P, tile, &smem, &g);
   *grid = static_cast<int>(g);
-  *stages = kStages;
+  *stages = ring::kStages;
   return static_cast<int>(e);
 }
 

@@ -1,67 +1,97 @@
-// Window checks and a row checksum that read their table rows from a staged
-// row window (window.cuh: RowWindow), for NVIDIA Hopper (compiled for
-// sm_90a).  Three kernels, one per TPU kernel they replace:
+// Window checks and a row checksum that read their table rows from staged
+// row windows (window.cuh: RowWindow), for NVIDIA Hopper (compiled for
+// sm_90a).  Three kernels, one per TPU kernel they replace, and two timing
+// controls:
 //
-//   window_compare_staged_both  <- disco_tpu/overlap/fused_kernel.py::
+//   window_compare_ring_both    <- disco_tpu/overlap/fused_kernel.py::
 //                                  verify_windows_fused_mxu_both (Pallas body
 //                                  _mxu3_kernel, K5): both rows fetched from
 //                                  one 32-word line table (relabeled rows),
 //                                  compared over its first W_CMP = 24 words.
-//   window_compare_staged       <- tools/exp_fetch_variants.py::verify_sync
+//   window_compare_anchored     <- tools/exp_fetch_variants.py::verify_sync
 //                                  (_sync_kernel, T1): read1's row from a
-//                                  64-row window anchored at the tile's first
-//                                  row & ~3; read2's row as (Wb, P) columns.
+//                                  64-row window anchored at the 1024-pair
+//                                  tile's first row & ~3; read2's row as
+//                                  (Wb, P) columns.
 //   row_checksum_staged         <- tools/exp_mxu_fetch.py::main (closure
 //                                  kern, T3): sum(word & 0x7FFF) over the
 //                                  words of row rows[p] + salt, from a
 //                                  32-row window at bases[tile] + salt.
+//   window_compare_staged_both, window_compare_staged: K5's and T1's kernels
+//   as they were before they overlapped their copies (the _unpipelined
+//   controls, on no path; see below).
 //
 // tools/exp_fetch_variants.py::verify_pipe_nc (T2) runs K4's Pallas body
 // (_mxu2_kernel) without its guard; its Hopper kernel is K4's
 // window_compare_fetch (window_compare.cu), which has no guard: one body,
 // two call sites, one kernel.
 //
-// A block of kThreads threads takes a tile of kTilePairs = 1024 pairs, four
-// a thread, strided so that a warp's loads of geometry stay coalesced.  It
-// stages its window with cp.async, waits and syncs, then checks its pairs.
-// This is what the TPU kernels do with their per-tile line windows (VMEM,
-// scalar-prefetched block indices, make_async_copy); here a row outside the
-// window is read from device memory and counted, so every result is exact
-// without a span precondition or a fallback, and `misses` says how often
-// the window missed.
+// The window rules are the TPU kernels' per-tile line windows (VMEM,
+// scalar-prefetched block indices, make_async_copy), per tile of
+// kTilePairs = 1024 pairs: K5 stages 192 rows from the tile's least read1
+// row and 384 from its least read2 row, T1 64 rows from its first pair's
+// row & ~3.  Here a row outside its window is read from device memory and
+// counted, so every result is exact without a span precondition or a
+// fallback, and `misses` says how often the window missed
+// (fused_kernel.py _both_misses, exp_fetch_variants.py sync_misses).
 //
 // What bounds them on an H100: device-memory bytes, as for window_compare.cu
 // (a funnel shift, an XOR and a compare per 16 bases of each pair).  Staging
 // moves each distinct row of a tile once, from device memory or L2, into
-// shared memory, where the tile's pairs re-read it without touching L1/L2
-// again; a staged row's words past ws (the words a window inside its row can
-// reach: Wp = n_words + 1 for packed reads) come from device memory.
+// shared memory, where the tile's pairs re-read it; a staged row's words
+// past ws (the words a window inside its row can reach: Wp = n_words + 1
+// for packed reads) come from device memory.  The rows are staged at an
+// odd stride (ws | 1), which puts word w of 32 consecutive rows on 32
+// banks, by 4-B cp.async: an odd stride breaks the 16-B alignment of the
+// wider copies, and not TMA, whose boxes are a multiple of 16 B wide (17
+// words are not) and fixed in height (a tile's row range is not).
 //
-// Shared memory, registers (ptxas -v, sm_90a) and occupancy (ws = 17 words,
-// stride 17, 256 threads a block):
-//   K5  read1 window 192 rows + read2 window 384 rows (the TPU's budgets:
-//       3 and 6 blocks of 64 rows) = 576 x 17 x 4 B = 39,168 B a block,
-//       room for 5 blocks an SM; 54 registers a thread allow 4: 1,024
-//       threads an SM (50% of 2,048);
-//   T1  64 rows = 4,352 B a block, 35 registers: 6 blocks, 1,536 threads
-//       an SM (75%);
-//   T3  32 rows = 2,176 B a block, 26 registers: 8 blocks, 2,048 threads
-//       an SM (100%).
-// Above 48 KB a launch first raises the kernel's dynamic shared memory
-// limit; above the card's 227 KB it is refused.
+// The earlier kernels (the controls) copied a tile's window, waited and
+// synced before its first compare, so nothing overlapped the copy: they
+// lost to the direct fetch on the same bytes (K5 to K6, T1 to T2).  The
+// kernels that replace them overlap the next tile's copy with a tile's
+// compare:
+//   - T1 runs on the ring of tile_ring.cuh (K4's, with the read1 rule
+//     AnchoredRows): 256-pair tiles, a persistent grid of three blocks an
+//     SM, two stages, geometry two tiles ahead.  A 256-pair tile stages the
+//     rows [max(lo, a, 0), min(hi, a + 63, n_rows - 1)] of its least and
+//     greatest live rows1 (lo, hi; n = 0 pairs included, as the count
+//     includes them) and its 1024-pair tile's anchor a, so a live row is
+//     staged exactly when it lies inside its window;
+//   - K5 keeps the 1024-pair tile as its unit, four pairs a thread: its
+//     window rule is per 1024 pairs, and read2's rows are far less local
+//     than read1's (after the BFS relabel a quarter of a tile's read2 rows
+//     span nearly as many rows as the whole tile's), so 256-pair tiles
+//     would copy read2's rows several times over.  A persistent grid walks
+//     the tiles with two stages: while tile j is compared, tile j + 1's
+//     windows are copied (its least and greatest rows, block-wide, from
+//     rows loaded a tile earlier), tile j + 1's geometry is loaded, and
+//     tile j + 2's rows.  Two stages of 576 rows of 17 words (78,336 B)
+//     leave room for two blocks an SM.  Each row is copied by a thread that
+//     steps through the window's words without a division
+//     (window.cuh stage_rows_stepped).  A window whose words all lie in the
+//     staged words compares them without an early exit (window.cuh
+//     staged_rows_equal; at most 16 words: the launcher takes at most 17
+//     staged words, as K5 takes reads of at most 256 bp): with the exit,
+//     each word's shared load waited on the compare before it, and the
+//     kernel took a fifth longer (PERF.md, section 6).
+// Any other window reads through staged_row_at, which reads device memory
+// past the staged words or outside the window.
 //
 // Each launcher is a plain C function: it launches on the given stream,
 // does not synchronise, allocates nothing, and returns the CUDA error of
-// the launch (cudaGetLastError()).
+// the launch (cudaGetLastError()) or of its launch-shape query.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_ring.cuh"
 #include "window.cuh"
 
 namespace {
 
 using disco::ColumnRow;
 using disco::RowWindow;
+using disco::TileSpan;
 using disco::add_count;
 using disco::block_min_max;
 using disco::cp_async_wait_all;
@@ -70,7 +100,9 @@ using disco::kTilePairs;
 using disco::row_window;
 using disco::stage_rows;
 using disco::staged_row;
+using disco::staged_row_at;
 using disco::window_equal;
+namespace ring = disco::ring;
 
 constexpr int kPerThread = kTilePairs / kThreads;
 constexpr int kBothRows1 = 192;  // K5 read1 window (TPU: NB_A = 3 x 64)
@@ -78,12 +110,182 @@ constexpr int kBothRows2 = 384;  // K5 read2 window (TPU: NB_B = 6 x 64)
 constexpr int kSyncRows = 64;    // T1 window (TPU: K_LINES = 16 lines of 4)
 constexpr int kSumRows = 32;     // T3 window (TPU: K = 32)
 constexpr int64_t kNoRow = INT64_MAX;
+static_assert(ring::AnchoredRows::kRows == kSyncRows, "T1's window");
 
 __device__ __forceinline__ int64_t pair_index(int k) {
   return static_cast<int64_t>(blockIdx.x) * kTilePairs + k * kThreads +
          threadIdx.x;
 }
 
+// ---------------------------------------------------------------------------
+// K5: a ring of 1024-pair tiles, four pairs a thread
+// ---------------------------------------------------------------------------
+constexpr int kBothStages = 2;
+constexpr int kBothBlocksPerSm = 2;
+constexpr int kBothSlotInts = 2 * 2 * 32;  // tile_spans<2>' scratch
+// windows of up to 16 words (reads <= 256 bp, all K5 takes) compare
+// without an early exit (window.cuh staged_rows_equal); K5 stages at most
+// kUnrolledWords + 1 words a row, so a window inside them has no more
+constexpr int kUnrolledWords = 16;
+
+struct TilePairRows {
+  int r1[kPerThread], r2[kPerThread];
+};
+
+struct TileGeometry {
+  int o1[kPerThread], o2[kPerThread], n[kPerThread];
+};
+
+__global__ void __launch_bounds__(kThreads, kBothBlocksPerSm)
+window_compare_ring_both_kernel(const uint32_t* __restrict__ table,
+                                int64_t n_rows, int wt, int words, int ws,
+                                const int32_t* __restrict__ rows1,
+                                const int32_t* __restrict__ rows2,
+                                int64_t P,
+                                const int32_t* __restrict__ o1,
+                                const int32_t* __restrict__ o2,
+                                const int32_t* __restrict__ n,
+                                uint8_t* __restrict__ ok,
+                                unsigned long long* __restrict__ misses) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int scratch[kBothStages * kBothSlotInts];
+  const int stride = ws | 1;
+  const int sw = (kBothRows1 + kBothRows2) * stride;
+  const int64_t tiles = (P + kTilePairs - 1) / kTilePairs;
+  const int64_t step = gridDim.x;
+
+  auto pair_at = [&](int64_t t, int k) {
+    return t * kTilePairs + k * kThreads + threadIdx.x;
+  };
+  auto load_rows = [&](int64_t t, TilePairRows& r) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int64_t p = pair_at(t, k);
+      r.r1[k] = p < P ? __ldg(rows1 + p) : 0;
+      r.r2[k] = p < P ? __ldg(rows2 + p) : 0;
+    }
+  };
+  auto load_geometry = [&](int64_t t, TileGeometry& g) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int64_t p = pair_at(t, k);
+      g.o1[k] = p < P ? __ldg(o1 + p) : 0;
+      g.o2[k] = p < P ? __ldg(o2 + p) : 0;
+      g.n[k] = p < P ? __ldg(n + p) : 0;
+    }
+  };
+  // The least and greatest row of each side over the tile's live pairs;
+  // every thread calls this (one sync).
+  auto spans_of = [&](int64_t t, const TilePairRows& r, int slot,
+                      TileSpan(&out)[2]) {
+    TileSpan mine[2] = {disco::no_span(), disco::no_span()};
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (pair_at(t, k) >= P) continue;
+      mine[0] = TileSpan{min(mine[0].lo, r.r1[k]), max(mine[0].hi, r.r1[k])};
+      mine[1] = TileSpan{min(mine[1].lo, r.r2[k]), max(mine[1].hi, r.r2[k])};
+    }
+    disco::tile_spans<2>(mine, scratch + slot * kBothSlotInts, out);
+  };
+  auto windows_of = [&](int slot, const TileSpan(&sp)[2], RowWindow& w1,
+                        RowWindow& w2) {
+    uint32_t* s = smem + slot * sw;
+    w1 = row_window(s, sp[0].lo, sp[0].hi, kBothRows1, n_rows, ws);
+    w2 = row_window(s + kBothRows1 * stride, sp[1].lo, sp[1].hi, kBothRows2,
+                    n_rows, ws);
+  };
+  auto stage = [&](int slot, const TileSpan(&sp)[2]) {
+    RowWindow w1, w2;
+    windows_of(slot, sp, w1, w2);
+    disco::stage_rows_stepped(w1, table, wt);
+    disco::stage_rows_stepped(w2, table, wt);
+    disco::cp_async_commit();
+  };
+
+  int64_t t = blockIdx.x;  // < tiles: the grid is no larger
+  TilePairRows r0, r1n, r2n;
+  TileGeometry g0, g1;
+  TileSpan sp0[2], sp1[2];
+  load_rows(t, r0);
+  load_geometry(t, g0);
+  spans_of(t, r0, 0, sp0);
+  stage(0, sp0);
+  load_rows(t + step, r1n);
+  int slot = 0, missed = 0;
+  for (;; t += step) {
+    // tile t + step goes into the stage that tile t - step used: every
+    // thread has passed that compare (spans_of syncs first)
+    spans_of(t + step, r1n, slot ^ 1, sp1);
+    stage(slot ^ 1, sp1);
+    load_geometry(t + step, g1);
+    load_rows(t + 2 * step, r2n);
+    disco::cp_async_wait<1>();
+    __syncthreads();
+
+    RowWindow w1, w2;
+    windows_of(slot, sp0, w1, w2);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int64_t p = pair_at(t, k);
+      bool v = true;
+      if (p < P) {
+        const int64_t k1 = r0.r1[k] - w1.base, k2 = r0.r2[k] - w2.base;
+        const bool s1 = k1 >= 0 && k1 < w1.rows;
+        const bool s2 = k2 >= 0 && k2 < w2.rows;
+        missed += !s1 + !s2;
+        const int q1 = g0.o1[k], q2 = g0.o2[k], nn = g0.n[k];
+        const int d1 = q1 >> 4, d2 = q2 >> 4;
+        const int nw = (nn >> 4) + ((nn & 15) != 0);
+        if (nn > 0 && s1 && s2 && d1 >= 0 && d1 + nw < ws && d2 >= 0 &&
+            d2 + nw < ws) {
+          const uint32_t* a = w1.smem + k1 * stride + d1;
+          const uint32_t* b = w2.smem + k2 * stride + d2;
+          v = disco::staged_rows_equal<kUnrolledWords>(
+              a, (q1 & 15) << 1, b, (q2 & 15) << 1, nn);
+        } else {
+          v = window_equal(
+              staged_row_at(w1, table, n_rows, wt, words, r0.r1[k]), q1,
+              staged_row_at(w2, table, n_rows, wt, words, r0.r2[k]), q2, nn);
+        }
+      }
+      disco::store_flags(ok, p, P, v);
+    }
+    if (t + step >= tiles) break;
+    r0 = r1n;
+    r1n = r2n;
+    g0 = g1;
+    sp0[0] = sp1[0];
+    sp0[1] = sp1[1];
+    slot ^= 1;
+  }
+  disco::cp_async_wait<0>();  // the empty stage past the last tile
+  add_count(missed, misses);
+}
+
+// ---------------------------------------------------------------------------
+// T1 on the ring of tile_ring.cuh
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(ring::kMaxTile, ring::kBlocksPerSm)
+window_compare_anchored_kernel(const uint32_t* __restrict__ table,
+                               int64_t n_rows, int wt, int ws,
+                               const uint32_t* __restrict__ b, int wb,
+                               const int32_t* __restrict__ rows1, int64_t P,
+                               const int32_t* __restrict__ o1,
+                               const int32_t* __restrict__ o2,
+                               const int32_t* __restrict__ n,
+                               uint8_t* __restrict__ ok,
+                               unsigned long long* __restrict__ misses) {
+  extern __shared__ uint4 smem4[];
+  __shared__ int scratch[ring::kScratchInts];
+  ring::compare_tiles<ring::AnchoredRows>(
+      reinterpret_cast<uint32_t*>(smem4), scratch, nullptr, table, n_rows,
+      wt, ws, b, wb, rows1, P, o1, o2, n, ok, misses);
+}
+
+// ---------------------------------------------------------------------------
+// One block a 1024-pair tile, copy then compare: T3, and the controls of K5
+// and T1 (their kernels before the copies overlapped the compares)
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 window_compare_staged_both_kernel(const uint32_t* __restrict__ table,
                                   int64_t n_rows, int wt, int words, int ws,
@@ -216,6 +418,17 @@ int64_t smem_for(K kernel, int rows, int ws, cudaError_t* err) {
   return *err == cudaSuccess ? bytes : -1;
 }
 
+// K5's dynamic shared memory (its stages of ws-word rows, ws <= 17) and
+// grid.
+cudaError_t both_shape(int ws, int64_t P, size_t* smem, unsigned* grid) {
+  if (ws < 1 || ws > kUnrolledWords + 1) return cudaErrorInvalidValue;
+  *smem = static_cast<size_t>(kBothStages) * 4 * (kBothRows1 + kBothRows2) *
+          (ws | 1);
+  return ring::persistent_grid(window_compare_ring_both_kernel, kThreads,
+                               *smem, (P + kTilePairs - 1) / kTilePairs,
+                               grid);
+}
+
 }  // namespace
 
 extern "C" {
@@ -226,6 +439,64 @@ int disco_window_compare_staged_both(const void* table, int64_t n_rows,
                                      int64_t P, const void* o1,
                                      const void* o2, const void* n, void* ok,
                                      void* misses, void* stream) {
+  if (P <= 0) return 0;
+  if (ws < 1 || ws > words || words > wt) return cudaErrorInvalidValue;
+  size_t smem;
+  unsigned grid;
+  const cudaError_t e = both_shape(ws, P, &smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  window_compare_ring_both_kernel<<<grid, kThreads, smem,
+                                    as_stream(stream)>>>(
+      u32(table), n_rows, wt, words, ws, i32(rows1), i32(rows2), P, i32(o1),
+      i32(o2), i32(n), static_cast<uint8_t*>(ok), u64(misses));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int disco_window_compare_staged(const void* table, int64_t n_rows, int wt,
+                                int ws, const void* b, int wb,
+                                const void* rows1, int64_t P, const void* o1,
+                                const void* o2, const void* n, void* ok,
+                                void* misses, void* stream) {
+  if (P <= 0) return 0;
+  if (ws < 1 || ws > wt) return cudaErrorInvalidValue;
+  int tile;
+  size_t smem;
+  unsigned grid;
+  const cudaError_t e = ring::tiled_shape<ring::AnchoredRows>(
+      window_compare_anchored_kernel, wb, ws, P, &tile, &smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  window_compare_anchored_kernel<<<grid, tile, smem, as_stream(stream)>>>(
+      u32(table), n_rows, wt, ws, u32(b), wb, i32(rows1), P, i32(o1),
+      i32(o2), i32(n), static_cast<uint8_t*>(ok), u64(misses));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of K5's kernel (both != 0; words unused) or T1's (read2's
+// columns `words` wide) at ws staged words a row and P pairs: pairs per
+// tile, blocks, and the stages of the ring.
+int disco_window_staged_shape(int both, int words, int ws, int64_t P,
+                              int* tile, int* grid, int* stages) {
+  size_t smem;
+  unsigned g = 0;
+  cudaError_t e;
+  if (both) {
+    e = both_shape(ws, P, &smem, &g);
+    *tile = kTilePairs;
+    *stages = kBothStages;
+  } else {
+    e = ring::tiled_shape<ring::AnchoredRows>(
+        window_compare_anchored_kernel, words, ws, P, tile, &smem, &g);
+    *stages = ring::kStages;
+  }
+  *grid = static_cast<int>(g);
+  return static_cast<int>(e);
+}
+
+
+int disco_window_compare_staged_both_unpipelined(
+    const void* table, int64_t n_rows, int wt, int words, int ws,
+    const void* rows1, const void* rows2, int64_t P, const void* o1,
+    const void* o2, const void* n, void* ok, void* misses, void* stream) {
   if (P <= 0) return 0;
   if (ws < 1 || ws > words || words > wt) return cudaErrorInvalidValue;
   cudaError_t err;
@@ -239,11 +510,10 @@ int disco_window_compare_staged_both(const void* table, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int disco_window_compare_staged(const void* table, int64_t n_rows, int wt,
-                                int ws, const void* b, int wb,
-                                const void* rows1, int64_t P, const void* o1,
-                                const void* o2, const void* n, void* ok,
-                                void* misses, void* stream) {
+int disco_window_compare_staged_unpipelined(
+    const void* table, int64_t n_rows, int wt, int ws, const void* b, int wb,
+    const void* rows1, int64_t P, const void* o1, const void* o2,
+    const void* n, void* ok, void* misses, void* stream) {
   if (P <= 0) return 0;
   if (ws < 1 || ws > wt) return cudaErrorInvalidValue;
   cudaError_t err;

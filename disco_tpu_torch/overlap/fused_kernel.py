@@ -33,10 +33,12 @@ The TPU versions need P to be a multiple of TILE, check a span guard and
 fall back through lax.cond; these take any P and have no guard, because a
 thread loads its own rows.  They return the same booleans.
 K3's and K4's kernels stage each tile's rows in shared memory (`tile_rows`
-states which column rows); their column inputs may be at most
-MAX_COLUMN_WORDS words wide.  `fused_compare_direct` and
-`fused_compare_fetch_direct` launch the earlier one-thread-a-pair kernels
-of the same functions: timing controls, on no path.
+states which column rows) and take column inputs of at most
+MAX_COLUMN_WORDS words (`tiled_shape` raises above); `fused_compare` and
+`fused_compare_fetch` send wider columns to the one-thread-a-pair kernels,
+which take any width, and count that launch as their own.
+`fused_compare_direct` and `fused_compare_fetch_direct` launch those
+one-thread-a-pair kernels at every width: timing controls, on no path.
 
 And in csrc/window_staged.cu, whose kernels read their rows from a window
 of rows staged in shared memory for each tile of TILE pairs:
@@ -45,7 +47,11 @@ of rows staged in shared memory for each tile of TILE pairs:
   rows from the `pack_lines` table (relabeled rows), compared over its
   first W_CMP = 24 words; reads of at most 256 bp (n_words <= 16).  Each
   tile stages 192 rows from its least read1 row and 384 from its least
-  read2 row (the TPU's window budgets).
+  read2 row (the TPU's window budgets; `both_windows` states which rows),
+  while the tile before it is compared.
+  `verify_windows_fused_mxu_both_unpipelined` launches its kernel of
+  before, which copied, waited and synced before every compare: a timing
+  control, on no path.
 `load_staged` also serves the fetch-experiment kernels of
 disco_tpu_torch/tools (T1, T3).  A row outside its tile's window is read
 from device memory, so the result is exact for every input; the wrapper's
@@ -99,7 +105,8 @@ def load_window():
     K7); returns the library."""
     global _WINDOW_LIB
     if _WINDOW_LIB is None:
-        lib = kernels.load_cuda("window_compare", deps=["window.cuh"])
+        lib = kernels.load_cuda("window_compare",
+                                deps=["window.cuh", "tile_ring.cuh"])
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.disco_window_compare.argtypes = [vp, vp, i32, i64] + [vp] * 5
         lib.disco_window_compare_fetch.argtypes = (
@@ -126,19 +133,27 @@ def load_window():
 
 def load_staged():
     """Build (nvcc, sm_90a) and load the staged-window kernels (K5, T1,
-    T3); returns the library."""
+    T3, and the controls of K5 and T1); returns the library."""
     global _STAGED_LIB
     if _STAGED_LIB is None:
-        lib = kernels.load_cuda("window_staged", deps=["window.cuh"])
+        lib = kernels.load_cuda("window_staged",
+                                deps=["window.cuh", "tile_ring.cuh"])
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.disco_window_compare_staged_both.argtypes = (
-            [vp, i64, i32, i32, i32, vp, vp, i64] + [vp] * 6)
-        lib.disco_window_compare_staged.argtypes = (
-            [vp, i64, i32, i32, vp, i32, vp, i64] + [vp] * 6)
+        both = [vp, i64, i32, i32, i32, vp, vp, i64] + [vp] * 6
+        sync = [vp, i64, i32, i32, vp, i32, vp, i64] + [vp] * 6
+        lib.disco_window_compare_staged_both.argtypes = both
+        lib.disco_window_compare_staged_both_unpipelined.argtypes = both
+        lib.disco_window_compare_staged.argtypes = sync
+        lib.disco_window_compare_staged_unpipelined.argtypes = sync
+        lib.disco_window_staged_shape.argtypes = ([i32, i32, i32, i64]
+                                                  + [vp] * 3)
         lib.disco_row_checksum_staged.argtypes = [vp, i64, i32, vp, i64, vp,
                                                   i32, vp, vp, vp]
         for fn in (lib.disco_window_compare_staged_both,
+                   lib.disco_window_compare_staged_both_unpipelined,
                    lib.disco_window_compare_staged,
+                   lib.disco_window_compare_staged_unpipelined,
+                   lib.disco_window_staged_shape,
                    lib.disco_row_checksum_staged):
             fn.restype = ctypes.c_int
         _STAGED_LIB = lib
@@ -365,18 +380,27 @@ def verify_windows_fused_mxu_both16_plain(packed_lines16, rows1, rows2, o1,
 # ---------------------------------------------------------------------------
 def _column_words(w):
     if w > MAX_COLUMN_WORDS:
-        raise ValueError(f"column inputs of {w} words: K3's and K4's "
+        raise ValueError(f"column inputs of {w} words: K3's and K4's tiled "
                          f"kernels take at most {MAX_COLUMN_WORDS}")
+
+
+def _launchable(kernel, words):
+    """`kernel`, or for a tiled kernel and column inputs wider than it
+    takes (over MAX_COLUMN_WORDS), its one-thread-a-pair twin
+    (`kernel`_direct), which takes any width."""
+    if kernel.endswith("_direct") or words <= MAX_COLUMN_WORDS:
+        return kernel
+    return kernel + "_direct"
 
 
 def _compare(kernel, a, b, o1, o2, n):
     """K3's checks, then its plain version (CPU) or `kernel` of the
-    library.  Returns (ok, whether the kernel was launched)."""
+    library (`_launchable` at a's width).  Returns (ok, whether a kernel
+    was launched)."""
     if a.dim() != 2 or b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          "be equal (Wp, P) column blocks")
     wp, p = a.shape
-    _column_words(wp)
     geo = (o1, o2, n)
     dev = _check((a, b), geo, p)
     if dev.type == "cpu":
@@ -384,6 +408,7 @@ def _compare(kernel, a, b, o1, o2, n):
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     if p == 0:
         return ok, False
+    kernel = _launchable(kernel, wp)
     with torch.cuda.device(dev):
         err = getattr(load_window(), kernel)(
             a.data_ptr(), b.data_ptr(), wp, p, *(g.data_ptr() for g in geo),
@@ -393,9 +418,11 @@ def _compare(kernel, a, b, o1, o2, n):
 
 
 def fused_compare(a, b, o1, o2, n):
-    """a, b: (Wp, P) int32 row columns (pair p's packed row in column p),
-    Wp <= MAX_COLUMN_WORDS; o1/o2: (P,) int32 base offsets of the windows;
-    n: (P,) int32 window lengths (0 => True).  Returns (P,) bool."""
+    """a, b: (Wp, P) int32 row columns (pair p's packed row in column p);
+    o1/o2: (P,) int32 base offsets of the windows; n: (P,) int32 window
+    lengths (0 => True).  Returns (P,) bool.  Columns of up to
+    MAX_COLUMN_WORDS words go to the tiled kernel, wider ones to the
+    one-thread-a-pair kernel; either launch is counted here."""
     ok, launched = _compare("disco_window_compare", a, b, o1, o2, n)
     fused_compare.launches += launched
     return ok
@@ -419,7 +446,9 @@ def tiled_shape(words, table_words, p):
     """The launch shape of K3's tiled kernel (table_words 0) or K4's (read1's
     rows table_words wide) over column inputs of `words` words and p pairs,
     on the current CUDA device: (pairs per tile, blocks, stages of the
-    ring)."""
+    ring).  Raises ValueError for columns wider than the tiled kernels
+    take (MAX_COLUMN_WORDS), which the wrappers send to the
+    one-thread-a-pair kernels."""
     _column_words(words)
     out = [ctypes.c_int() for _ in range(3)]
     _raise_on(load_window().disco_window_compare_shape(
@@ -489,7 +518,8 @@ def _check_lines(lines):
 
 def fused_compare_fetch(table, b, rows1, o1, o2, n):
     """table: (R, Wt) int32 row-major packed rows; b: (Wb, P) int32 columns
-    of read2's rows, Wb <= MAX_COLUMN_WORDS; rows1: (P,) int32 rows of read1 in `table`, best
+    of read2's rows (over MAX_COLUMN_WORDS words, the one-thread-a-pair
+    kernel, counted here); rows1: (P,) int32 rows of read1 in `table`, best
     sorted (a row outside the table reads as zeros); o1/o2/n: (P,) int32
     window geometry.  Returns (P,) bool."""
     ok, launched = compare_fetch(table, b, rows1, o1, o2, n)
@@ -522,13 +552,13 @@ fused_compare_fetch_direct.launches = 0
 
 def _compare_fetch(kernel, table, b, rows1, o1, o2, n):
     """K4's checks, then its plain version (CPU) or `kernel` of the
-    library.  Returns (ok, whether the kernel was launched)."""
+    library (`_launchable` at b's width).  Returns (ok, whether a kernel
+    was launched)."""
     if table.dim() != 2 or b.dim() != 2:
         raise ValueError(f"table {tuple(table.shape)} and b "
                          f"{tuple(b.shape)}: need (R, Wt) and (Wb, P)")
     n_rows, wt = table.shape
     wb, p = b.shape
-    _column_words(wb)
     geo = (o1, o2, n)
     dev = _check((table, b, rows1), geo, p)
     if rows1.shape != (p,):
@@ -538,6 +568,7 @@ def _compare_fetch(kernel, table, b, rows1, o1, o2, n):
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     if p == 0:
         return ok, False
+    kernel = _launchable(kernel, wb)
     with torch.cuda.device(dev):
         err = getattr(load_window(), kernel)(
             table.data_ptr(), n_rows, wt, b.data_ptr(), wb, rows1.data_ptr(),
@@ -608,34 +639,71 @@ verify_windows_fused_mxu_both16.launches = 0
 # ---------------------------------------------------------------------------
 # staged row windows (csrc/window_staged.cu): K5 here, T1 and T3 in tools/
 # ---------------------------------------------------------------------------
-def tile_min_max(rows):
-    """Per-tile (TILE pairs, the last one partial) least and greatest row of
-    (P,) int64 `rows`: two (ceil(P / TILE),) int64 tensors."""
-    t = torch.arange(rows.numel(), device=rows.device) // TILE
-    nt = -(-rows.numel() // TILE)
-    lo = torch.full((nt,), torch.iinfo(torch.int64).max, dtype=torch.int64,
-                    device=rows.device).scatter_reduce(0, t, rows, "amin")
-    hi = torch.full((nt,), -1, dtype=torch.int64,
-                    device=rows.device).scatter_reduce(0, t, rows, "amax")
+def staged_shape(kernel, words, ws, p):
+    """The launch shape of K5's kernel (kernel "K5") or T1's ("T1", read2's
+    columns `words` wide) at ws staged words a row and p pairs, on the
+    current CUDA device: (pairs per tile, blocks, stages of the ring)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _raise_on(load_staged().disco_window_staged_shape(
+        {"K5": 1, "T1": 0}[kernel], words, ws, p,
+        *(ctypes.addressof(x) for x in out)), "window_staged_shape")
+    return tuple(x.value for x in out)
+
+
+def tile_min_max(rows, tile=TILE):
+    """Per-tile (`tile` pairs, the last one partial) least and greatest row
+    of (P,) int64 `rows`: two (ceil(P / tile),) int64 tensors."""
+    t = torch.arange(rows.numel(), device=rows.device) // tile
+    nt = -(-rows.numel() // tile)
+    lo = torch.zeros(nt, dtype=torch.int64, device=rows.device).scatter_reduce(
+        0, t, rows, "amin", include_self=False)
+    hi = torch.zeros(nt, dtype=torch.int64, device=rows.device).scatter_reduce(
+        0, t, rows, "amax", include_self=False)
     return lo, hi
 
 
-def window_misses(rows, first, last, cap, n_rows):
-    """The row reads a staged kernel makes outside its windows (window.cuh:
-    row_window): tile t of TILE pairs stages rows [max(first[t], 0),
-    min(first[t] + cap, last[t] + 1, n_rows)), and each of its rows outside
-    that range is read from device memory.  rows: (P,) int64; first/last:
-    (ceil(P / TILE),) int64.  Returns a 0-dim int64 tensor."""
-    t = torch.arange(rows.numel(), device=rows.device) // TILE
+def window_rows(first, last, cap, n_rows):
+    """The rows a staged kernel stages (window.cuh: row_window): [lo, lo +
+    count) with lo = max(first, 0) and lo + count = min(first + cap,
+    last + 1, n_rows).  Returns (lo, count), count 0 where none."""
     lo = first.clamp(min=0)
     hi = torch.minimum(first + cap, last + 1).clamp(max=n_rows)
-    return ((rows < lo[t]) | (rows >= hi[t])).sum()
+    return lo, (hi - lo).clamp(min=0)
+
+
+def window_misses(rows, first, last, cap, n_rows):
+    """The row reads a staged kernel makes outside its windows: tile t of
+    TILE pairs stages `window_rows(first[t], last[t], cap, n_rows)`, and
+    each of its rows outside that range is read from device memory.  rows:
+    (P,) int64; first/last: (ceil(P / TILE),) int64.  Returns a 0-dim int64
+    tensor."""
+    return (~staged_mask(rows, *window_rows(first, last, cap,
+                                            n_rows))).sum()
+
+
+def staged_mask(rows, lo, count, tile=TILE):
+    """(P,) bool: pair p's row lies in its tile's staged rows [lo[t], lo[t]
+    + count[t]), t = p // tile."""
+    t = torch.arange(rows.numel(), device=rows.device) // tile
+    return (rows >= lo[t]) & (rows < lo[t] + count[t])
+
+
+def both_windows(n_rows, rows1, rows2):
+    """The rows K5's kernel stages for each tile of TILE pairs (csrc/
+    window_staged.cu window_compare_ring_both), per side: rows [max(lo, 0),
+    min(lo + cap, hi + 1, n_rows)) of the tile's least and greatest row lo,
+    hi over all its pairs, cap 192 for read1 and 384 for read2 (BOTH_ROWS).
+    Returns ((lo1, count1), (lo2, count2)), int64 tensors of ceil(P /
+    TILE); a row outside them is read from device memory and counted."""
+    return tuple(window_rows(*tile_min_max(r.long()), cap, n_rows)
+                 for r, cap in zip((rows1, rows2), BOTH_ROWS))
 
 
 def _both_misses(n_rows, rows1, rows2):
     total = 0
-    for rows, cap in zip((rows1.long(), rows2.long()), BOTH_ROWS):
-        total = total + window_misses(rows, *tile_min_max(rows), cap, n_rows)
+    for rows, (lo, count) in zip((rows1, rows2),
+                                 both_windows(n_rows, rows1, rows2)):
+        total = total + (~staged_mask(rows.long(), lo, count)).sum()
     return total
 
 
@@ -648,20 +716,13 @@ def verify_windows_fused_mxu_both_plain(packed_lines, rows1, rows2, o1, o2,
                               o2, n)
 
 
-def verify_windows_fused_mxu_both(packed_lines, rows1, rows2, o1, o2, n, *,
-                                  n_words):
-    """verify_windows with both rows fetched inside the kernel from the
-    `pack_lines` table: packed_lines (L, 128) int32, viewed as 32-word rows
-    of which the first W_CMP = 24 are compared; rows1/rows2 (P,) int32 rows
-    of that table (after `relabel_workload`, a tile's rows lie in narrow
-    bands); o1/o2/n (P,) int32.  Like the reference it takes reads of at
-    most 256 bp only (n_words <= W_CMP - 8 = 16) and raises otherwise.
-    Returns (P,) bool; `out_of_window` then holds the row reads outside the
-    staged windows."""
+def _fused_mxu_both(kernel, fn, packed_lines, rows1, rows2, o1, o2, n,
+                    n_words):
+    """K5's checks, then its plain version (CPU) or `kernel` of the staged
+    library; sets fn.out_of_window and counts the launch in fn.launches."""
     _check_lines(packed_lines)
     p = rows1.numel()
     dev = _check((packed_lines,), (rows1, rows2, o1, o2, n), p)
-    fn = verify_windows_fused_mxu_both
     if p == 0:
         fn.out_of_window = torch.zeros((), dtype=torch.int64, device=dev)
         return torch.zeros(0, dtype=torch.bool, device=dev)
@@ -678,16 +739,45 @@ def verify_windows_fused_mxu_both(packed_lines, rows1, rows2, o1, o2, n, *,
     misses = torch.zeros(1, dtype=torch.int64, device=dev)
     ws = max(1, min(W_CMP, n_words + 1))     # the words a window can reach
     with torch.cuda.device(dev):
-        err = load_staged().disco_window_compare_staged_both(
+        err = getattr(load_staged(), kernel)(
             table.data_ptr(), table.shape[0], W32, W_CMP, ws,
             rows1.data_ptr(), rows2.data_ptr(), p, o1.data_ptr(),
             o2.data_ptr(), n.data_ptr(), ok.data_ptr(), misses.data_ptr(),
             _stream(dev))
-    _raise_on(err, "window_compare_staged_both")
+    _raise_on(err, kernel)
     fn.launches += 1
     fn.out_of_window = misses[0]
     return ok
 
 
+def verify_windows_fused_mxu_both(packed_lines, rows1, rows2, o1, o2, n, *,
+                                  n_words):
+    """verify_windows with both rows fetched inside the kernel from the
+    `pack_lines` table: packed_lines (L, 128) int32, viewed as 32-word rows
+    of which the first W_CMP = 24 are compared; rows1/rows2 (P,) int32 rows
+    of that table (after `relabel_workload`, a tile's rows lie in narrow
+    bands); o1/o2/n (P,) int32.  Like the reference it takes reads of at
+    most 256 bp only (n_words <= W_CMP - 8 = 16) and raises otherwise.
+    Returns (P,) bool; `out_of_window` then holds the row reads outside the
+    staged windows."""
+    return _fused_mxu_both("disco_window_compare_staged_both",
+                           verify_windows_fused_mxu_both, packed_lines,
+                           rows1, rows2, o1, o2, n, n_words)
+
+
 verify_windows_fused_mxu_both.launches = 0
 verify_windows_fused_mxu_both.out_of_window = None
+
+
+def verify_windows_fused_mxu_both_unpipelined(packed_lines, rows1, rows2, o1,
+                                              o2, n, *, n_words):
+    """`verify_windows_fused_mxu_both` through the kernel it had before its
+    copies overlapped its compares (one block a tile: copy, wait, sync,
+    compare): a timing control, on no path."""
+    return _fused_mxu_both("disco_window_compare_staged_both_unpipelined",
+                           verify_windows_fused_mxu_both_unpipelined,
+                           packed_lines, rows1, rows2, o1, o2, n, n_words)
+
+
+verify_windows_fused_mxu_both_unpipelined.launches = 0
+verify_windows_fused_mxu_both_unpipelined.out_of_window = None

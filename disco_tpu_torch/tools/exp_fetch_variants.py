@@ -11,7 +11,9 @@ pairs:
 
     fused    bench_verify's `fused`: two row gathers, then K3
     sync     verify_sync (T1): read1's row from a 64-row window staged in
-             shared memory, anchored at the tile's first row & ~3
+             shared memory, anchored at the tile's first row & ~3 (its
+             kernel of before, which copied before it compared:
+             verify_sync_unpipelined)
     pipe     verify_windows_fused_mxu over (lines, packed_all) (K4)
     pipe_nc  verify_pipe_nc (T2): the same kernel as pipe, under its own
              launch count (on the TPU: K4's body without its guard)
@@ -63,6 +65,23 @@ def sync_misses(n_rows, rows1):
                             n_rows)
 
 
+def sync_rows(n_rows, rows1, tile):
+    """The rows T1's kernel stages for each tile of `tile` pairs (a power
+    of two, at most TILE; csrc/tile_ring.cuh AnchoredRows): [max(lo, a, 0),
+    min(hi + 1, a + 64, n_rows)) of the tile's least and greatest row lo,
+    hi over all its pairs (n = 0 included) and the anchor a of its TILE-pair
+    tile, rows1 of that tile's first pair & ~3.  A pair's row is staged
+    exactly when `sync_misses` counts it inside its window.  Returns (lo,
+    count), int64 tensors of ceil(P / tile)."""
+    r = rows1.long()
+    lo, hi = fk.tile_min_max(r, tile)
+    first = torch.arange(len(lo), device=r.device) * tile
+    a = r[first - first % TILE] & ~3
+    return fk.window_rows(torch.maximum(lo, a),
+                          torch.minimum(hi, a + SYNC_ROWS - 1), SYNC_ROWS,
+                          n_rows)
+
+
 def verify_sync_plain(lines, packed_orig, rows1, rows2, o1, o2, n):
     """Plain version of `verify_sync` (and of `verify_pipe_nc`)."""
     table, b = _tables(lines, packed_orig, rows2)
@@ -77,25 +96,56 @@ def verify_sync(lines, packed_orig, rows1, rows2, o1, o2, n):
     rows1 (r1-sorted)/rows2/o1/o2/n: (P,) int32, any P.  Returns (P,) bool;
     `out_of_window` then holds the row reads outside the windows.  The TPU
     version needs P % TILE == 0 and every tile's rows inside its window
-    (no guard); this one is exact for every input."""
-    p = rows1.numel()
-    fk._check((lines, packed_orig), (rows1, rows2, o1, o2, n), p)
-    ok, misses, launched = compare_staged(
-        *_tables(lines, packed_orig, rows2), rows1, o1, o2, n)
-    verify_sync.launches += launched
-    verify_sync.out_of_window = misses
-    return ok
+    (no guard); this one is exact for every input.  Its kernel runs on K4's
+    ring of 256-pair tiles, each staging the rows of its pairs inside the
+    window (`sync_rows`) while the tile before it is compared."""
+    return _sync(compare_staged, verify_sync, lines, packed_orig, rows1,
+                 rows2, o1, o2, n)
 
 
 verify_sync.launches = 0
 verify_sync.out_of_window = None
 
 
+def verify_sync_unpipelined(lines, packed_orig, rows1, rows2, o1, o2, n):
+    """`verify_sync` through the kernel it had before its copies overlapped
+    its compares (one block a tile: copy, wait, sync, compare): a timing
+    control, on no path."""
+    return _sync(compare_staged_unpipelined, verify_sync_unpipelined, lines,
+                 packed_orig, rows1, rows2, o1, o2, n)
+
+
+verify_sync_unpipelined.launches = 0
+verify_sync_unpipelined.out_of_window = None
+
+
+def _sync(launch, fn, lines, packed_orig, rows1, rows2, o1, o2, n):
+    p = rows1.numel()
+    fk._check((lines, packed_orig), (rows1, rows2, o1, o2, n), p)
+    ok, misses, launched = launch(*_tables(lines, packed_orig, rows2), rows1,
+                                  o1, o2, n)
+    fn.launches += launched
+    fn.out_of_window = misses
+    return ok
+
+
 def compare_staged(table, b, rows1, o1, o2, n):
     """T1's launch without its count: table (R, Wt) int32 rows, of which
-    the first Wb are staged; b (Wb, P) int32 columns of read2's rows;
-    rows1/o1/o2/n (P,) int32.  Returns (ok, the row reads outside the
-    windows as a 0-dim int64 tensor, whether the kernel was launched)."""
+    the first min(Wt, Wb) are staged; b (Wb, P) int32 columns of read2's
+    rows, Wb <= fk.MAX_COLUMN_WORDS on a card; rows1/o1/o2/n (P,) int32.
+    Returns (ok, the row reads outside the windows as a 0-dim int64 tensor,
+    whether the kernel was launched)."""
+    return _compare_staged("disco_window_compare_staged", table, b, rows1,
+                           o1, o2, n)
+
+
+def compare_staged_unpipelined(table, b, rows1, o1, o2, n):
+    """`compare_staged` through T1's kernel of before (the control)."""
+    return _compare_staged("disco_window_compare_staged_unpipelined", table,
+                           b, rows1, o1, o2, n)
+
+
+def _compare_staged(kernel, table, b, rows1, o1, o2, n):
     p = rows1.numel()
     dev = fk._check((table, b, rows1), (o1, o2, n), p)
     if table.dim() != 2 or b.dim() != 2 or b.shape[1] != p:
@@ -110,11 +160,11 @@ def compare_staged(table, b, rows1, o1, o2, n):
     if p == 0:
         return ok, misses[0], False
     with torch.cuda.device(dev):
-        err = fk.load_staged().disco_window_compare_staged(
+        err = getattr(fk.load_staged(), kernel)(
             table.data_ptr(), n_rows, wt, min(wt, b.shape[0]), b.data_ptr(),
             b.shape[0], rows1.data_ptr(), p, o1.data_ptr(), o2.data_ptr(),
             n.data_ptr(), ok.data_ptr(), misses.data_ptr(), fk._stream(dev))
-    fk._raise_on(err, "window_compare_staged")
+    fk._raise_on(err, kernel)
     return ok, misses[0], True
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
-K4, K5, K6, and the one-thread-a-pair controls of K3 and K4;
-overlap/pallas_kernel.py: K7; tools/exp_fetch_variants.py: T1, T2;
+K4, K5, K6, the one-thread-a-pair controls of K3 and K4 and the
+unpipelined control of K5; overlap/pallas_kernel.py: K7;
+tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
 tools/exp_mxu_fetch.py: T3) against their plain versions, on a CUDA card.
 Tolerance: exact — the outputs are booleans and integers.
 
@@ -348,7 +349,12 @@ def _staged_cases(packed_all, rows1, rows2, o1, o2, n):
     return [
         ("K5", lambda *a: port.verify_windows_fused_mxu_both(*a, n_words=nw),
          (lines, r1, r2, *g)),
+        ("K5 unpipelined",
+         lambda *a: port.verify_windows_fused_mxu_both_unpipelined(
+             *a, n_words=nw), (lines, r1, r2, *g)),
         ("T1", fv.verify_sync, (lines, table, r1, r2, *g)),
+        ("T1 unpipelined", fv.verify_sync_unpipelined,
+         (lines, table, r1, r2, *g)),
         ("T2", fv.verify_pipe_nc, (lines, table, r1, r2, *g)),
         ("T3", lambda *a: mf.fetch_checksum(*a, 0), (table, r1, bases)),
         ("T3 salt 1", lambda *a: mf.fetch_checksum(*a, 1),
@@ -357,19 +363,36 @@ def _staged_cases(packed_all, rows1, rows2, o1, o2, n):
 
 
 def _staged(name):
-    return {"K5": port.verify_windows_fused_mxu_both, "T1": fv.verify_sync,
-            "T2": fv.verify_pipe_nc, "T3": mf.fetch_checksum}[name.split()[0]]
+    return {"K5": port.verify_windows_fused_mxu_both,
+            "K5 unpipelined": port.verify_windows_fused_mxu_both_unpipelined,
+            "T1": fv.verify_sync,
+            "T1 unpipelined": fv.verify_sync_unpipelined,
+            "T2": fv.verify_pipe_nc,
+            "T3": mf.fetch_checksum}[name.replace(" salt 1", "")]
+
+
+def _past_the_rings():
+    """A P past T1's and K5's rings: more tiles than blocks x stages."""
+    return max(tile * blocks * stages + 5 for tile, blocks, stages in (
+        port.staged_shape("T1", 17, 17, 1 << 40),
+        port.staged_shape("K5", 0, 17, 1 << 40)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,order", [(1, "sorted"), (2 * 1024, "sorted"),
-                                     (100_003, "sorted"),
-                                     (3001, "random")])
+@pytest.mark.parametrize("p,order", [(1, "sorted"), (255, "sorted"),
+                                     (1023, "sorted"), (1025, "sorted"),
+                                     (2 * 1024, "sorted"),
+                                     (100_003, "sorted"), ("ring", "sorted"),
+                                     (1025, "random"), (3001, "random"),
+                                     ("ring", "random")])
 def test_staged_kernels_match_plain(cuda_device, p, order):
-    """Every bit phase, n = 0, true matches, any P; sorted rows1, or random
-    rows1 whose tiles miss their windows.  The kernels' out-of-window counts
-    equal the counts of their windows' rule (window_misses), which the CPU
-    call gives."""
+    """Every bit phase, n = 0, true matches, any P (past the rings of T1's
+    and K5's kernels too); sorted rows1, or random rows1 whose tiles miss
+    their windows.  The kernels' out-of-window counts, their controls'
+    included, equal the counts of their windows' rule (sync_misses,
+    _both_misses), which the CPU call gives."""
+    if p == "ring":
+        p = _past_the_rings()
     packed_all, rows1, rows2, geo = _batch(seed=19, p=p)
     if order == "sorted":
         perm = np.argsort(rows1, kind="stable")
@@ -410,7 +433,8 @@ def test_staged_kernels_read_zeros_past_row_end(cuda_device):
     rows1 = np.sort(rng.integers(0, len(table32), p))
     rows1[-8:] = len(table32) - 1
     rows2 = rng.integers(0, len(table32), p)
-    for name, w in (("K5", 24), ("T1", 32), ("T2", 32)):
+    for name, w in (("K5", 24), ("K5 unpipelined", 24), ("T1", 32),
+                    ("T1 unpipelined", 32), ("T2", 32)):
         same, (o1, o2, n, _, _) = _past_row_geometry(seed=23, p=p, wp=w)
         r2 = np.where(same, rows1, rows2)
         padded = np.zeros((len(table32), w + 2), np.uint32)
@@ -421,11 +445,10 @@ def test_staged_kernels_read_zeros_past_row_end(cuda_device):
         assert want.any() and not want.all(), name
         dev = [x.to(cuda_device) for x in (_t(rows1), _t(r2), *g)]
         lines_d = as_words(lines, cuda_device)
-        if name == "K5":
-            got = port.verify_windows_fused_mxu_both(lines_d, *dev,
-                                                     n_words=16)
+        fn = _staged(name)
+        if name.startswith("K5"):
+            got = fn(lines_d, *dev, n_words=16)
         else:
-            fn = fv.verify_sync if name == "T1" else fv.verify_pipe_nc
             got = fn(lines_d, as_words(table32, cuda_device), *dev)
         torch.cuda.synchronize()
         _assert_same([want], [got])
@@ -456,6 +479,15 @@ def test_staged_kernels_on_empty_batch(cuda_device):
     for name, kern, args in _staged_cases(packed_all, z, z, z, z, z):
         out = kern(*(_to(a, cuda_device) for a in args))
         assert out.shape == (0,) and out.is_cuda, name
+
+
+@pytest.mark.cuda
+def test_k5_ring_takes_at_most_17_staged_words(cuda_device):
+    """K5's ring compares a staged window of at most 16 words (reads of at
+    most 256 bp, all it takes), so its launch shape refuses wider rows."""
+    assert port.staged_shape("K5", 0, 17, 1025)[0] == 1024
+    with pytest.raises(RuntimeError, match="window_staged_shape"):
+        port.staged_shape("K5", 0, 18, 1025)
 
 
 # ---------------------------------------------------------------------------
@@ -576,3 +608,36 @@ def test_tiled_kernels_past_the_row_and_before_it(cuda_device):
                     port.fused_compare_fetch_direct(t, b, *dev)):
             torch.cuda.synchronize()
             _assert_same([want], [got])
+
+
+# ---------------------------------------------------------------------------
+# columns wider than the tiled kernels take (over 256 words)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [257, 300])
+def test_wide_columns_launch_the_direct_kernel(cuda_device, w):
+    """K3 and K4 with column inputs wider than their tiled kernels take:
+    the one-thread-a-pair kernel, counted under the public wrapper's
+    `launches` (and not the control's), equal to the plain version."""
+    p = 3001
+    table, rows1, rows2, o1, o2, n = _column_batch(w + p, p, w)
+    cols = [as_words(table[r].T) for r in (rows1, rows2)]
+    g = [_t(x) for x in (o1, o2, n)]
+    cases = (
+        (port.fused_compare, port.fused_compare_direct,
+         (cols[0], cols[1], *g), port.fused_compare_plain),
+        (port.fused_compare_fetch, port.fused_compare_fetch_direct,
+         (as_words(table), cols[1], _t(rows1), *g),
+         port.fused_compare_fetch_plain))
+    for fn, control, args, plain in cases:
+        want = plain(*args)
+        assert want.any() and not want.all()
+        with pytest.raises(ValueError, match="at most 256"):
+            port.tiled_shape(w, 32 if fn is port.fused_compare_fetch else 0,
+                             p)
+        before, before_control = fn.launches, control.launches
+        got = fn(*(x.to(cuda_device) for x in args))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert control.launches == before_control
+        _assert_same([want], [got])

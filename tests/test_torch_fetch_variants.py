@@ -109,12 +109,15 @@ def test_t1_t2_exact_where_the_tpu_needs_its_window(batch, p):
     table = pv.as_words(pa)
     want = pv.verify_windows(table, *args, n_words=store.n_words)
     lines = pv.as_words(fk.pack_lines(pa)[0])
-    for port in (fv.verify_sync, fv.verify_pipe_nc):
+    for port in (fv.verify_sync, fv.verify_sync_unpipelined,
+                 fv.verify_pipe_nc):
         np.testing.assert_array_equal(port(lines, table, *args).numpy(),
                                       want.numpy())
     first = (rows1[::TILE] & ~3)[np.arange(p) // TILE]
     outside = int(((rows1 < first) | (rows1 >= first + 64)).sum())
     assert int(fv.verify_sync.out_of_window) == outside
+    assert int(fv.verify_sync_unpipelined.out_of_window) == outside
+    assert fv.verify_sync_unpipelined.launches == 0
     if p > 1:
         assert outside > 0
 

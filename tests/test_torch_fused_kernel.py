@@ -288,6 +288,11 @@ def test_both_matches_pallas(layout):
                           np.asarray(args[1], np.int64), len(lines) * 4)
     assert int(port.verify_windows_fused_mxu_both.out_of_window) == misses
     assert misses > 0 or layout == "relabeled"
+    # the control (K5's kernel of before) takes the same plain version
+    control = port.verify_windows_fused_mxu_both_unpipelined
+    got = control(as_words(lines), *_ints(*args), n_words=store.n_words)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(control.out_of_window) == misses and control.launches == 0
 
 
 def test_both_takes_reads_of_at_most_256_bp():
@@ -366,23 +371,80 @@ def test_single_wrappers_reject_bad_inputs():
 
 
 def test_column_kernels_take_at_most_256_words():
-    """K3's and K4's kernels stage column inputs of at most 256 words
-    (4,080 bp): a wider one raises on every device, the control's wrapper
-    included; 256 words pass."""
+    """K3's and K4's tiled kernels stage column inputs of at most 256 words
+    (4,080 bp): their launch shape raises above that, on every device.  The
+    wrappers, the controls' included, take any width: 256 and 257 words
+    give the plain check's booleans."""
     rng = np.random.default_rng(3)
     g = _ints(*(rng.integers(0, 200, 40) for _ in range(3)))
     r1 = _t(rng.integers(0, 8, 40))
     for w in (256, 257):
         cols = _t(rng.integers(0, 2 ** 31, (w, 40)))
         table = _t(rng.integers(0, 2 ** 31, (8, 32)))
-        calls = (lambda: port.fused_compare(cols, cols, *g),
-                 lambda: port.fused_compare_direct(cols, cols, *g),
-                 lambda: port.fused_compare_fetch(table, cols, r1, *g),
-                 lambda: port.fused_compare_fetch_direct(table, cols, r1,
-                                                         *g))
-        for call in calls:
-            if w == 256:
-                assert call().shape == (40,)
-            else:
+        want_k3 = port.fused_compare_plain(cols, cols, *g)
+        want_k4 = port.fused_compare_fetch_plain(table, cols, r1, *g)
+        for got, want in (
+                (port.fused_compare(cols, cols, *g), want_k3),
+                (port.fused_compare_direct(cols, cols, *g), want_k3),
+                (port.fused_compare_fetch(table, cols, r1, *g), want_k4),
+                (port.fused_compare_fetch_direct(table, cols, r1, *g),
+                 want_k4)):
+            assert got.shape == (40,)
+            assert torch.equal(got, want)
+        for table_words in (0, 32):
+            if w == 257:
                 with pytest.raises(ValueError, match="at most 256"):
-                    call()
+                    port.tiled_shape(w, table_words, 40)
+
+
+def _wide(seed, wp, p=TILE, n_rows=64):
+    """Random rows of wp words and windows anywhere inside them, long ones
+    included (up to the whole row): a third of the pairs true matches, n = 0
+    on a tenth.  Returns (table, rows1, rows2, o1, o2, n), numpy."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2 ** 32, (n_rows, wp), dtype=np.uint64).astype(
+        np.uint32)
+    end = 16 * (wp - 1)
+    rows1 = rng.integers(0, n_rows, p)
+    rows2 = rng.integers(0, n_rows, p)
+    o1 = rng.integers(0, end, p)
+    o2 = rng.integers(0, end, p)
+    same = np.arange(p) % 3 == 0
+    rows2[same], o2[same] = rows1[same], o1[same]
+    n = np.minimum(rng.integers(0, end, p), end - np.maximum(o1, o2))
+    n[::10] = 0
+    return table, rows1, rows2, o1, o2, n
+
+
+@pytest.mark.parametrize("wp", [257, 320])
+def test_wide_columns_match_pallas(wp):
+    """Columns wider than the tiled kernels take (F1): fused_compare,
+    verify_windows_fused, verify_windows_fused_t and fused_compare_fetch
+    (plain on the CPU) against disco_tpu's fused_compare in interpret mode,
+    which has no width limit.  P is a multiple of 1024, as the reference
+    asserts."""
+    table, rows1, rows2, o1, o2, n = _wide(seed=wp, wp=wp)
+    a, b = table[rows1].T, table[rows2].T
+    want = np.asarray(ref.fused_compare(
+        jnp.asarray(a), jnp.asarray(b), *(jnp.asarray(x, jnp.int32)
+                                          for x in (o1, o2, n)),
+        interpret=True))
+    assert want[::3].all() and not want.all()
+    assert (n[want] > 16 * 200).any()            # long matching windows
+    g = _ints(o1, o2, n)
+    r1, r2 = _ints(rows1, rows2)
+    got = {
+        "fused_compare": port.fused_compare(as_words(a), as_words(b), *g),
+        "verify_windows_fused": port.verify_windows_fused(
+            as_words(table), r1, r2, *g, n_words=wp - 1),
+        "verify_windows_fused_t": port.verify_windows_fused_t(
+            as_words(np.ascontiguousarray(table.T)), r1, r2, *g,
+            n_words=wp - 1),
+        "fused_compare_fetch": port.fused_compare_fetch(
+            as_words(table), as_words(b), r1, *g),
+    }
+    for name, ok in got.items():
+        assert ok.dtype == torch.bool and ok.shape == (TILE,), name
+        np.testing.assert_array_equal(ok.numpy(), want, err_msg=name)
+    assert port.fused_compare.launches == 0
+    assert port.fused_compare_fetch.launches == 0

@@ -65,8 +65,11 @@ class _Stop(Exception):
 
 
 def test_kernel_loaders_name_their_headers(monkeypatch):
-    """Every CUDA source of the port that includes window.cuh is built with
-    that header among its deps."""
+    """Every CUDA source of the port is built with each header it includes
+    (window.cuh, tile_ring.cuh, and the headers those include) among its
+    deps."""
+    import re
+
     import pytest
 
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -86,7 +89,16 @@ def test_kernel_loaders_name_their_headers(monkeypatch):
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
     assert sorted(seen) == sources == ["dual_compare.cu", "window_compare.cu",
                                        "window_staged.cu"]
+    def includes(path):
+        return set(re.findall(r'#include "(\w+\.cuh)"', path.read_text()))
+
     for name, deps in seen.items():
-        assert '#include "window.cuh"' in (kernels.CSRC / name).read_text()
-        assert kernels.CSRC / "window.cuh" in deps
+        want, todo = set(), includes(kernels.CSRC / name)
+        while todo:
+            h = todo.pop()
+            want.add(h)
+            todo |= includes(kernels.CSRC / h) - want
+        assert "window.cuh" in want
+        assert want == {d.name for d in deps}, name
         assert all(d.exists() for d in deps)
+    assert kernels.CSRC / "tile_ring.cuh" in seen["window_staged.cu"]
