@@ -9,9 +9,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    limit, and the torch and CUDA versions;
 2. build: the CUDA kernels (nvcc, sm_90a) and the C++ host libraries (g++)
    from the checkout's sources, timed, and `ptxas -v`'s registers, shared
-   memory and spills for K3's, K4's, T1's, K5's and T3's kernels and T1's
-   and K5's controls, with their tiles, stages and blocks at the main
-   path's widths;
+   memory and spills for K3's, K4's, K6's, T1's, K5's and T3's kernels and
+   K6's, T1's, K5's and T3's controls, with their tiles, stages and blocks
+   at the main path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
    genome, 30x, 250 bp paired reads, 500 bp insert, seed 42);
    MinOverlap4BuildGraph from the shipped cfg (30);
@@ -45,19 +45,19 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    every live window matches) and with read2's window moved one base on
    every other pair (mismatches), and each slice's booleans must equal
    the plain verify_windows on the same pairs; the counts are read right
-   after and each must be above 0, and the counts of K3's and K4's
-   controls (the one-thread-a-pair kernels they had before their columns
-   were tiled, `_direct`) must be 0.  Then each kernel against its plain
-   version, timed by CUDA events at P = 2^22 (the median over 5 spread
-   slices; K3 and K4 in turns with their controls, plain, control, kernel,
-   kernel, control, as made and moved apart, the controls held to the
-   plain version too), each path's pairs/s, and edge-case batches (every
-   bit phase, n = 0 and a whole tile of it, P = 1, 31, 255, 256, 257,
-   3001, 2^16 + 5 and past the tiled kernels' ring, K3 on rows of 2, 17
-   and 32 words, K4 with Wb = 17 and 32 and rows1 sorted and not, windows
-   past the row, K7's over-long windows; K3 and K4 on columns of 257 and
-   300 words, which their wrappers send to the one-thread-a-pair kernel
-   and count as their own launch);
+   after and each must be above 0, and the counts of K3's, K4's and K6's
+   controls (their one-thread-a-pair kernels of before, `_direct`) must
+   be 0.  Then each kernel against its plain version, timed by CUDA events
+   at P = 2^22 (the median over 5 spread slices; K3, K4 and K6 in turns
+   with their controls, plain, control, kernel, kernel, control, as made
+   and moved apart, the controls held to the plain version too; K6 also
+   held), each path's pairs/s, and edge-case batches (every bit phase,
+   n = 0 and a whole tile of it, P = 1, 31, 255, 256, 257, 3001, 2^16 + 5
+   and past the tiled kernels' ring, K3 on rows of 2, 17 and 32 words, K4
+   with Wb = 17 and 32 and rows1 sorted and not, windows past the row, K6
+   rows outside the table, K7's over-long windows; K3 and K4 on columns
+   of 257 and 300 words, which their wrappers send to the
+   one-thread-a-pair kernel and count as their own launch);
 8. fetch experiments (`python -m disco_tpu_torch.tools.exp_fetch_variants`
    and `exp_mxu_fetch`) on phase 7's batch and relabel: with the K5, T1,
    T2 and T3 launch counts set to 0, K5 over the relabeled 32-word table
@@ -69,14 +69,15 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    to the tool's numpy checksum; K5's and T1's out-of-window row reads on
    each slice equal their window rules' counts (`_both_misses`,
    `sync_misses`).  The counts are read right after and each must be
-   above 0, and the counts of K5's and T1's controls (their kernels before
-   the copies overlapped the compares, `_unpipelined`) must be 0.  Then
-   each kernel against its plain version, timed at P = 2^22 (K5, T1 and T2
-   in turns with their controls, as made and moved: K5's and T1's
-   `_unpipelined`, T2's K4's `_direct`), its out-of-window row reads, and
-   edge-case batches (every bit phase, n = 0, P = 1, 255, 1023, 1025, 3001
-   and past K5's and T1's rings, rows outside every window, windows past
-   the row; the controls of K5 and T1 too).
+   above 0, and the counts of the controls of K5, T1 and T3 (their kernels
+   before the copies overlapped the compares or sums, `_unpipelined`) and
+   of T2 (K4's `_direct`) must be 0.  Then each kernel against its plain
+   version, timed at P = 2^22 in turns with its control (K5, T1 and T2 as
+   made and moved, T3 with salt 0 and 1 and also held), its out-of-window
+   row reads, and edge-case batches (every bit phase, n = 0, P = 1, 255,
+   1023, 1025, 3001 and past the rings of K5, T1 and T3, rows outside
+   every window, windows past the row, T3 on rows of 17 and 32 words and
+   rows past both ends of the table; the controls too).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -84,20 +85,21 @@ over 67e12 a second (the H100 SXM figures of NVIDIA's data sheet).  Its
 bytes are counted from the inputs it was timed on: 12 B of window geometry
 a pair (20 B for the dual check), each row index, each output, the words
 each window spans in a column input, and each distinct row a fetch kernel
-reads (its Wp = n_words + 1 data words), each once.  K3, K4, T1, T2 and
-K5 also carry a sector floor: what a kernel must read at the card's 32-B
-sector granularity, the column inputs' sectors that some window of each
-group of 8 neighbouring pairs reads, plus the same geometry, indices and
-outputs and the fetched rows in whole sectors, over 3.35 TB/s (K5 has no
-column input: its floor is its distinct rows of both sides in whole
-sectors and 21 B a pair).  No single PyTorch call
+reads (its Wp = n_words + 1 data words), each once.  Every kernel but
+K1, K2 and K7 also carries a sector floor: what a kernel must read at the
+card's 32-B sector granularity, the column inputs' sectors that some
+window of each group of 8 neighbouring pairs reads, plus the same
+geometry, indices and outputs and the fetched rows in whole sectors, over
+3.35 TB/s (K5 and K6 have no column input: their floor is their distinct
+rows of both sides in whole sectors and 21 B a pair; T3's the sectors its
+distinct rows cover, 8 B a pair and its bases).  No single PyTorch call
 computes a packed-window compare or the checksum, so `library_ms` is null.
 
 Times are the mean of back-to-back calls through the wrappers, as a path
 makes them.  A kernel shorter than its wrapper's host work is then timed on
-the host, so K1, K2, K6, K7 and T3 (the kernels timed without a control)
-also carry `held_ms`: the same calls queued behind a sleep kernel, so that
-the events time the card alone.
+the host, so K1, K2, K6, K7 and T3 also carry `held_ms`: the same calls
+queued behind a sleep kernel, so that the events time the card alone (K6
+and T3 in turns with their controls, which carry it too).
 
 With --profile, one more device relation runs under cProfile and
 torch.profiler: host functions by cumulative seconds, the device's busy
@@ -150,12 +152,19 @@ FETCH_KERNELS = (
 # the kernels whose `ptxas -v` phase 2 prints, by source
 PTXAS_KERNELS = {
     "window_compare.cu": ("window_compare_kernel",
-                          "window_compare_fetch_kernel"),
+                          "window_compare_fetch_kernel",
+                          "window_compare_fetch_both_kernel",
+                          "window_compare_fetch_both_direct_kernel"),
     "window_staged.cu": ("window_compare_anchored_kernel",
                          "window_compare_ring_both_kernel",
                          "window_compare_staged_kernel",
                          "window_compare_staged_both_kernel",
+                         "row_checksum_ring_kernel",
                          "row_checksum_staged_kernel")}
+# the kernels timed in turns with a control that are also timed held: near
+# or below their wrappers' host work back to back (K1, K2 and K7, with no
+# control, are held in their own timing)
+HELD = ("K6", "T3")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
@@ -567,9 +576,10 @@ def single_kernels():
 
 
 def direct_controls():
-    """id -> wrapper of the one-thread-a-pair controls of K3 and K4."""
+    """id -> wrapper of the one-thread-a-pair controls of K3, K4 and K6."""
     from disco_tpu_torch.overlap import fused_kernel as fk
-    return {"K3": fk.fused_compare_direct, "K4": fk.fused_compare_fetch_direct}
+    return {"K3": fk.fused_compare_direct, "K4": fk.fused_compare_fetch_direct,
+            "K6": fk.verify_windows_fused_mxu_both16_direct}
 
 
 def kernel_inputs(wls, sl):
@@ -627,34 +637,85 @@ def single_bound(k, args, wp):
                                  ).sum(), 0, 0, compared_words(nn))
 
 
+def table_sectors(rows, wt, n_rows):
+    """The bytes of the 32-B sectors of a row-major (n_rows, wt) int32
+    table that its distinct rows `rows` inside the table cover (rows that
+    share a sector share its bytes)."""
+    import torch
+    r = torch.unique(rows.long())
+    r = r[(r >= 0) & (r < n_rows)]
+    first, last = (r * wt * 4) // 32, ((r + 1) * wt * 4 - 1) // 32
+    ks = torch.arange(-(-wt * 4 // 32) + 1, device=r.device)
+    sec = first[:, None] + ks
+    return 32 * int(torch.unique(sec[ks <= (last - first)[:, None]]).numel())
+
+
 def column_floor(k, args, wp):
     """The sector floor of K3 (k "K3": `kernel_inputs` args a, b, o1, o2,
-    n), of K5 ("K5": lines, rows1, rows2, o1, o2, n: both sides' distinct
-    rows in whole sectors, no column input) or of K4's kernel (table, b,
-    rows1, o1, o2, n; T1's and T2's too)."""
+    n), of K5 and K6 ("K5", "K6": lines, rows1, rows2, o1, o2, n: both
+    sides' distinct rows in whole sectors, their first wp and 16 words, and
+    21 B a pair, no column input), of T3 ("T3": table, rows, bases, salt:
+    the sectors of its distinct rows, 8 B a pair and its bases) or of K4's
+    kernel (table, b, rows1, o1, o2, n; T1's and T2's too)."""
     import torch
     if k == "K3":
         a, _, o1, o2, n = args
         return sector_floor(len(n), column_sectors(o1, n, a.shape[0])
                             + column_sectors(o2, n, a.shape[0]), 0, 0)
-    if k == "K5":
+    if k in ("K5", "K6"):
         _, r1, r2, _, _, n = args
-        return sector_floor(len(n), 0, fetched_sectors(wp, torch.cat((r1,
-                                                                       r2))),
+        w = wp if k == "K5" else min(wp, 16)
+        return sector_floor(len(n), 0, fetched_sectors(w, torch.cat((r1,
+                                                                      r2))),
                             8)
+    if k == "T3":
+        table, rows, bases, salt = args
+        return sector_floor(len(rows), 0, table_sectors(
+            rows.long() + salt, table.shape[1], table.shape[0]) +
+            4 * len(bases), 4, geo_bytes=0, out_bytes=4)
     _, b, r1, _, o2, n = args
     return sector_floor(len(n), column_sectors(o2, n, b.shape[0]),
                         fetched_sectors(wp, r1), 4)
 
 
-def time_turns(kern, control, plain, reps=20):
+def time_turns(kern, control, plain, reps=20, hold=False):
     """CUDA-event times in turns: plain (when given), control, kernel,
-    kernel, control.  Returns (kernel ms, control ms, plain ms or None), the
-    first two the means of their two turns."""
+    kernel, control; held (`cuda_ms`) with `hold`.  Returns (kernel ms,
+    control ms, plain ms or None), the first two the means of their two
+    turns."""
     plain_ms = cuda_ms(plain, 5) if plain is not None else None
-    c1, k1, k2, c2 = (cuda_ms(f, reps) for f in (control, kern, kern,
-                                                  control))
+    c1, k1, k2, c2 = (cuda_ms(f, reps, hold) for f in (control, kern, kern,
+                                                        control))
     return (k1 + k2) / 2, (c1 + c2) / 2, plain_ms
+
+
+def turns(times, k, ctl, tag, kern, control, plain):
+    """Kernel k and its control (suffix ctl) timed in turns into `times`
+    under k + tag and k + ctl + tag, the plain version (when given) under
+    k + "_plain"; the kernels of HELD also held, under k + "_held" + tag
+    and k + ctl + "_held" + tag."""
+    k_ms, c_ms, p_ms = time_turns(kern, control, plain)
+    times.setdefault(k + tag, []).append(k_ms)
+    times.setdefault(k + ctl + tag, []).append(c_ms)
+    if p_ms is not None:
+        times.setdefault(k + "_plain", []).append(p_ms)
+    if k in HELD:
+        k_ms, c_ms, _ = time_turns(kern, control, None, hold=True)
+        times.setdefault(k + "_held" + tag, []).append(k_ms)
+        times.setdefault(k + ctl + "_held" + tag, []).append(c_ms)
+
+
+def turns_line(k, ctl, med, floors, moved="moved"):
+    """The line of kernel k timed in turns with its control (suffix ctl),
+    as made and `moved`, with its sector floor."""
+    def pair(key):
+        return f"{med[key]:.4f} ms ({moved} {med[key + '_moved']:.4f})"
+    held = "" if k + "_held" not in med else (
+        f"; held {pair(k + '_held')}, {ctl} {pair(k + '_' + ctl + '_held')}")
+    return (f"{k} in turns with its control: {pair(k)}, {ctl} "
+            f"{pair(k + '_' + ctl)}{held}; sector floor "
+            f"{floors[k]['sector_bytes']} B, "
+            f"{floors[k]['sector_floor_ms']:.4f} ms")
 
 
 def edge_pairs(rng, n_rows, w, p):
@@ -735,12 +796,14 @@ def single_edge_cases(pa, errs, seed=3):
                 run("K4", fk.verify_windows_fused_mxu(tables, q1, q2, *gg,
                                                       n_words=wp - 1), want)
                 run("K4_direct", fk.fused_compare_fetch_direct(*args), want)
+        want = fk.verify_windows_fused_mxu_both16_plain(lines[16], r1, r2, *g,
+                                                        n_words=wp - 1)
+        for name, fn in (("K6", fk.verify_windows_fused_mxu_both16),
+                         ("K6_direct",
+                          fk.verify_windows_fused_mxu_both16_direct)):
+            run(name, fn(lines[16], r1, r2, *g, n_words=wp - 1), want)
         if p > 1 << 16:
-            continue            # K6 and K7 have no tiles: two sizes suffice
-        run("K6", fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
-                                                     n_words=wp - 1),
-            fk.verify_windows_fused_mxu_both16_plain(lines[16], r1, r2, *g,
-                                                     n_words=wp - 1))
+            continue            # K7 has no tiles: two sizes suffice
         word = [align_window(pa[r.long()], t(o & ~15)).T.contiguous()
                 for r, o in ((r1, o1), (r2, o2))]
         bits = [t((o & 15) << 1) for o in (o1, o2)]
@@ -829,15 +892,64 @@ def single_edge_cases(pa, errs, seed=3):
         else:
             got = fk.verify_windows_fused_mxu_both16(lines[16], r1, r2, *g,
                                                      n_words=wp - 1)
+            run("K6_direct", fk.verify_windows_fused_mxu_both16_direct(
+                lines[16], r1, r2, *g, n_words=wp - 1), want)
         run(name, got, want)
+    # K6 and its control on rows outside the table, which read as zeros:
+    # the plain check over the table with three zero rows on either side
+    t16 = lines[16].view(-1, 16)
+    rows1, rows2, o1, o2, n = edge_pairs(rng, len(t16) + 6, wp, 3001)
+    rows1[:5], rows1[-5:] = 0, len(t16) + 5       # rows1 stays sorted
+    rows2[1::50] = rng.choice([0, 2, len(t16) + 3, len(t16) + 5],
+                              len(rows2[1::50]))
+    r1, r2, g = t(rows1 - 3), t(rows2 - 3), [t(x) for x in (o1, o2, n)]
+    framed = torch.zeros((len(t16) + 6, 16), dtype=torch.int32, device=DEVICE)
+    framed[3:-3] = t16
+    want = fk.window_check_plain(framed[r1.long() + 3], framed[r2.long() + 3],
+                                 *g)
+    check(bool(((r1 < 0) | (r1 >= len(t16))).any()), "no K6 row outside")
+    for name, fn in (("K6", fk.verify_windows_fused_mxu_both16),
+                     ("K6_direct", fk.verify_windows_fused_mxu_both16_direct)):
+        run(name, fn(lines[16], r1, r2, *g, n_words=wp - 1), want)
+    # K6 and its control on windows of 257 to 300 bases (more than the 16
+    # compared words K6's fast path holds: the checked readers), over the
+    # same framed table padded with zero words; and K6 on a table that is
+    # not 16-B aligned (its direct kernel, counted as K6's launch)
+    n = rng.integers(257, 301, len(n))
+    n[::7] = 0
+    g[2] = t(n)
+    wide = torch.zeros((len(framed), 40), dtype=torch.int32, device=DEVICE)
+    wide[:, :16] = framed
+    want = fk.window_check_plain(wide[r1.long() + 3], wide[r2.long() + 3],
+                                 *g)
+    check(bool(want.any()) and not bool(want.all()),
+          "K6 batch of windows over 256 bases: all one answer")
+    for name, fn in (("K6", fk.verify_windows_fused_mxu_both16),
+                     ("K6_direct", fk.verify_windows_fused_mxu_both16_direct)):
+        run(name, fn(lines[16], r1, r2, *g, n_words=wp - 1), want)
+    flat = torch.zeros(lines[16].numel() + 4, dtype=torch.int32,
+                       device=DEVICE)
+    shifted = flat[1:1 + lines[16].numel()].view(lines[16].shape)
+    shifted.copy_(lines[16])
+    check(shifted.data_ptr() % 16 != 0, "the shifted table is 16-B aligned")
+    before = (fk.verify_windows_fused_mxu_both16.launches,
+              fk.verify_windows_fused_mxu_both16_direct.launches)
+    run("K6", fk.verify_windows_fused_mxu_both16(shifted, r1, r2, *g,
+                                                  n_words=wp - 1), want)
+    check((fk.verify_windows_fused_mxu_both16.launches,
+           fk.verify_windows_fused_mxu_both16_direct.launches) ==
+          (before[0] + 1, before[1]),
+          "K6 on a misaligned table: the launch was not counted as K6's")
     say(f"verify: edge-case batches (P = {', '.join(map(str, sizes))}; "
         "every bit phase, n = 0 and a tile of n = 0, K4 in both table forms "
         "(Wb = 32 and 17) with rows1 sorted and not, K3 on rows of 2, 17 "
         "and 32 words, K3 and K4 on columns of 257 and 300 words through "
         "the one-thread-a-pair kernel counted as theirs, the paths fused and "
         "fused_t on rows of 257 words, K7 windows longer "
-        "than its words, windows up to one word past the row): K3, K4, "
-        "their _direct controls, K6, K7 == plain")
+        "than its words, windows up to one word past the row, K6 rows "
+        "outside the table, K6 windows of 257 to 300 bases and a K6 table "
+        "not 16-B aligned): K3, K4, K6, their _direct controls, K7 == "
+        "plain")
 
 
 def verify_paths_phase(fasta, min_ovl):
@@ -907,8 +1019,8 @@ def verify_paths_phase(fasta, min_ovl):
         for moved in (0, 1):
             mwl = (dataclasses.replace(dwl, o2=dwl.o2 + shift) if moved
                    else dwl)
-            if moved and path in ("fused", "fused_mxu"):
-                moved_card[path] = mwl      # K3's and K4's timed inputs
+            if moved and path in ("fused", "fused_mxu", "fused_mxu3"):
+                moved_card[path] = mwl      # K3's, K4's and K6's inputs
             for sl in slices:
                 got = mwl.verify(sl)
                 ref = (want[moved][sl] if perm is None
@@ -933,6 +1045,7 @@ def verify_paths_phase(fasta, min_ovl):
         check(n > 0, f"the verify paths never launched {k}")
     for k, f in controls.items():
         check(f.launches == 0, f"the verify paths launched {k}'s control")
+        launches[k + "_direct"] = f.launches
 
     # each kernel against its plain version, and the times, at P = 2^22;
     # K3 and K4 in turns with their controls, as made and moved
@@ -976,13 +1089,9 @@ def verify_paths_phase(fasta, min_ovl):
                     times.setdefault(k + "_plain", []).append(
                         cuda_ms(lambda: plain(*a, **kw), 5))
                     continue
-                k_ms, c_ms, p_ms = time_turns(
-                    lambda: fn(*a), lambda: control(*a),
-                    None if tag else (lambda: plain(*a)))
-                times.setdefault(k + tag, []).append(k_ms)
-                times.setdefault(k + "_direct" + tag, []).append(c_ms)
-                if p_ms is not None:
-                    times.setdefault(k + "_plain", []).append(p_ms)
+                turns(times, k, "_direct", tag, lambda: fn(*a, **kw),
+                      lambda: control(*a, **kw),
+                      None if tag else (lambda: plain(*a, **kw)))
         for path, dwl in on_card.items():
             path_ms[path].append(cuda_ms(lambda: dwl.verify(sl), 10))
     med = {k: statistics.median(v) for k, v in times.items()}
@@ -996,12 +1105,7 @@ def verify_paths_phase(fasta, min_ovl):
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
         if k in floors:
-            say(f"verify: {k} in turns with its control: tiled "
-                f"{med[k]:.4f} ms (moved {med[k + '_moved']:.4f}), direct "
-                f"{med[k + '_direct']:.4f} ms (moved "
-                f"{med[k + '_direct_moved']:.4f}); sector floor "
-                f"{floors[k]['sector_bytes']} B, "
-                f"{floors[k]['sector_floor_ms']:.4f} ms")
+            say("verify: " + turns_line(k, "direct", med, floors))
     for path, ms in path_ms.items():
         m = statistics.median(ms)
         say(f"verify: path {path}: {m:.4f} ms per {VERIFY_SLICE} pairs, "
@@ -1025,23 +1129,26 @@ def fetch_kernels():
 
 
 def unpipelined_controls():
-    """id -> wrapper of the controls of K5 and T1: their kernels before the
-    copies overlapped the compares."""
+    """id -> wrapper of the controls of K5, T1 and T3: their kernels before
+    the copies overlapped the compares (T3: the sums)."""
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.tools import exp_fetch_variants as fv
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
     return {"K5": fk.verify_windows_fused_mxu_both_unpipelined,
-            "T1": fv.verify_sync_unpipelined}
+            "T1": fv.verify_sync_unpipelined,
+            "T3": mf.fetch_checksum_unpipelined}
 
 
 # phase 8's timing controls: the kernel id -> the control's name
-FETCH_CONTROLS = {"K5": "unpipelined", "T1": "unpipelined", "T2": "direct"}
+FETCH_CONTROLS = {"K5": "unpipelined", "T1": "unpipelined", "T2": "direct",
+                  "T3": "unpipelined"}
 
 
 def fetch_inputs(d, sl, wp):
     """Each phase 8 kernel's launch, plain version, arguments, bound and
-    timing control (None for T3) at pairs `sl`: K5 on the relabeled 32-word
-    table, T1's and T2's launches on the (lines, packed) tables with read2's
-    columns gathered, T3 on the r1-sorted rows with salt 0.  The launches
+    timing control at pairs `sl`: K5 on the relabeled 32-word table, T1's
+    and T2's launches on the (lines, packed) tables with read2's columns
+    gathered, T3 on the r1-sorted rows with salt d["salt"].  The launches
     time the kernels alone: T1 and T2 gather read2's columns first, as
     K4's wrapper does."""
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -1070,9 +1177,9 @@ def fetch_inputs(d, sl, wp):
                fk.fused_compare_fetch_plain, (table, b, r1, o1, o2, n), k1,
                fk.fused_compare_fetch_direct),
         "T3": (mf.fetch_checksum, mf.fetch_checksum_plain,
-               (d["packed"], r1, bases, 0),
+               (d["packed"], r1, bases, d["salt"]),
                bound(p * 8 + 4 * len(bases) + 4 * wp * distinct(r1),
-                     2 * wp * p), None),
+                     2 * wp * p), mf.fetch_checksum_unpipelined),
     }
 
 
@@ -1087,14 +1194,16 @@ def window_rule_counts(kern, n_rows, r1, r2=None):
 
 
 def fetch_edge_cases(pa, errs, seed=5):
-    """K5, T1, T2 and T3, and the controls of K5 and T1, against their plain
-    versions on synthetic batches over random 32-word rows (so that the
-    words past the staged ones come from device memory): every bit phase,
-    n = 0, P = 1, 255, 1023, 1025, 3001 and past K5's and T1's rings,
-    sorted rows and random rows (outside every window), K5's and T1's
-    out-of-window row reads equal to their rules' counts, windows up to one
-    word past the compared row (the plain check over rows padded with two
-    zero words), and T3 on rows past both ends of the table."""
+    """K5, T1, T2 and T3, and the controls of K5, T1 and T3, against their
+    plain versions on synthetic batches over random 32-word rows (so that
+    the words past the staged ones come from device memory): every bit
+    phase, n = 0, P = 1, 255, 1023, 1025, 3001 and past the rings of K5, T1
+    and T3 (more tiles than blocks x stages), sorted rows and random rows
+    (outside every window), K5's, T1's and T3's out-of-window row reads
+    equal to their rules' counts, windows up to one word past the compared
+    row (the plain check over rows padded with two zero words), and T3 on
+    rows of 17 and 32 words (one span, and row by row), rows past both
+    ends of the table, salt 0 and 1."""
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -1131,11 +1240,16 @@ def fetch_edge_cases(pa, errs, seed=5):
                            f"its rule counts {rule}")
         return got
 
-    rings = max(tile * blocks * stages + 5 for tile, blocks, stages in (
+    rings = max([tile * blocks * stages + 5 for tile, blocks, stages in (
         fk.staged_shape("T1", 32, 32, 1 << 40),
-        fk.staged_shape("K5", 0, 17, 1 << 40)))
+        fk.staged_shape("K5", 0, 17, 1 << 40))] + [
+            fk.TILE * blocks * stages + 5 for stages, blocks in (
+                mf.checksum_shape(w, 1 << 40) for w in (17, 32))])
     sizes = (1, 255, 1023, 1025, 3001, rings)
     missed = {k: 0 for k in ("K5", "T1", "T3")}
+    # T3 on the 32-word rows (an even width: copied row by row) and on 17
+    # (odd: one span); past both ends of the table
+    table17 = table[:, :17].contiguous()
     for p in sizes:
         for order in ("sorted", "random"):
             i = np.arange(p)
@@ -1166,10 +1280,18 @@ def fetch_edge_cases(pa, errs, seed=5):
                 "pairs")
             bases = t(np.sort(rows1)[::fk.TILE])
             rows = t(rows1 + rng.integers(-1, 2, p) * (i % 50 == 0) * n_rows)
-            for salt in (0, 1):
-                run("T3", mf.fetch_checksum(table, rows, bases, salt),
-                    mf.fetch_checksum_plain(table, rows, bases, salt), "rows")
-                missed["T3"] += int(mf.fetch_checksum.out_of_window)
+            for salt, tab in ((0, table), (1, table), (0, table17),
+                              (1, table17)):
+                want = mf.fetch_checksum_plain(tab, rows, bases, salt)
+                rule = int(mf.checksum_misses(n_rows, rows, bases, salt))
+                for fn in (mf.fetch_checksum, controls["T3"]):
+                    name = "T3" if fn is mf.fetch_checksum else \
+                        "T3_unpipelined"
+                    run(name, fn(tab, rows, bases, salt), want, "rows")
+                    got = int(fn.out_of_window)
+                    check(got == rule, f"{name}: {got} row reads outside "
+                                       f"its windows, its rule counts {rule}")
+                missed["T3"] += got
     check(all(m > 0 for m in missed.values()),
           f"the random rows missed no window: {missed}")
     # past the compared row: K5 compares 24 words, T1 and T2 32
@@ -1194,9 +1316,10 @@ def fetch_edge_cases(pa, errs, seed=5):
                 "past-row pairs")
     say(f"fetch: edge-case batches (P = {', '.join(map(str, sizes))}; every "
         "bit phase, n = 0, sorted and random rows, windows up to one word "
-        "past the row, T3 rows past the table, salt 0 and 1): K5, T1, their "
-        "_unpipelined controls, T2, T3 == plain, and K5's and T1's row "
-        "reads outside their windows == their rules' counts; out-of-window "
+        "past the row, T3 on rows of 17 and 32 words and rows past both "
+        "ends of the table, salt 0 and 1): K5, T1, T3, their _unpipelined "
+        "controls, T2 == plain, and K5's, T1's and T3's row reads outside "
+        "their windows == their rules' counts; out-of-window "
         "row reads on them " + ", ".join(f"{k} {m}"
                                          for k, m in missed.items()))
 
@@ -1223,7 +1346,8 @@ def fetch_phase(batch, wls, want, odd):
          "lines": torch.from_numpy(fk.pack_lines(
              pa.cpu().numpy().view(np.uint32))[0].view(np.int32)).to(DEVICE),
          "lines_relab": torch.from_numpy(fk.pack_lines(
-             relab.packed)[0].view(np.int32)).to(DEVICE)}
+             relab.packed)[0].view(np.int32)).to(DEVICE),
+         "salt": 0}
     n_rows = {"T1": d["lines"].numel() // fk.W32,
               "K5": d["lines_relab"].numel() // fk.W32}
     n_pairs = len(orig.n)
@@ -1236,7 +1360,7 @@ def fetch_phase(batch, wls, want, odd):
         "tables of the batch and of phase 7's relabel)")
 
     kern = fetch_kernels()
-    controls = unpipelined_controls()
+    controls = {**unpipelined_controls(), "T2": fk.fused_compare_fetch_direct}
     for k in (*kern.values(), *controls.values()):
         k.launches = 0
     misses = {"K5": 0, "T1": 0, "T3": 0}
@@ -1294,6 +1418,7 @@ def fetch_phase(batch, wls, want, odd):
     for k, f in controls.items():
         check(f.launches == 0, f"the fetch experiments launched {k}'s "
                                "control")
+        launches[f"{k}_{FETCH_CONTROLS[k]}"] = f.launches
 
     # each kernel against its plain version, and the times, at P = 2^22;
     # K5, T1 and T2 in turns with their controls, as made and moved
@@ -1301,23 +1426,18 @@ def fetch_phase(batch, wls, want, odd):
     picks = [full[int(i)] for i in
              sorted({int(x) for x in np.linspace(0, len(full) - 1, 5)})]
     d_moved = dict(d, batch=(r1, r2, o1, o2 + odd, n),
-                   relab=(q1, q2, p1, p2 + odd[perm], pn))
+                   relab=(q1, q2, p1, p2 + odd[perm], pn), salt=1)
     times, errs, bounds, floors = {}, {}, {}, {}
     for sl in picks:
         moved = fetch_inputs(d_moved, sl, wp)
         for k, (fn, plain, args, bd, control) in fetch_inputs(
                 d, sl, wp).items():
             bounds.setdefault(k, []).append(bd)
-            if control is not None:
-                floors.setdefault(k, []).append(column_floor(k, args, wp))
-            ctl = f"_{FETCH_CONTROLS.get(k)}"
+            floors.setdefault(k, []).append(column_floor(k, args, wp))
+            ctl = f"_{FETCH_CONTROLS[k]}"
             for tag, a in (("", args), ("_moved", moved[k][2])):
-                if control is None and tag:
-                    continue
                 ref = plain(*a)
                 for name, f in ((k, fn), (k + ctl, control)):
-                    if f is None:
-                        continue
                     got = f(*a)
                     torch.cuda.synchronize()
                     err = int((got.long() - ref.long()).abs().max())
@@ -1326,21 +1446,9 @@ def fetch_phase(batch, wls, want, odd):
                                     f"pairs of slice {sl.start}:{sl.stop}"
                                     f"{tag}")
                     errs[name] = max(errs.get(name, 0), err)
-                if control is None:
-                    times.setdefault(k, []).append(
-                        cuda_ms(lambda: fn(*a), 20))
-                    times.setdefault(k + "_held", []).append(
-                        cuda_ms(lambda: fn(*a), 20, hold=True))
-                    times.setdefault(k + "_plain", []).append(
-                        cuda_ms(lambda: plain(*a), 5))
-                    continue
-                k_ms, c_ms, p_ms = time_turns(
-                    lambda: fn(*a), lambda: control(*a),
-                    None if tag else (lambda: plain(*a)))
-                times.setdefault(k + tag, []).append(k_ms)
-                times.setdefault(k + ctl + tag, []).append(c_ms)
-                if p_ms is not None:
-                    times.setdefault(k + "_plain", []).append(p_ms)
+                turns(times, k, ctl, tag, lambda: fn(*a),
+                      lambda: control(*a), None if tag else (
+                          lambda: plain(*a)))
     med = {k: statistics.median(v) for k, v in times.items()}
     bounds = {k: median_bound(v) for k, v in bounds.items()}
     floors = {k: median_bound(v, "sector_bytes") for k, v in floors.items()}
@@ -1351,14 +1459,8 @@ def fetch_phase(batch, wls, want, odd):
             f"{med[k + '_plain']:.4f} ms (P = {VERIFY_SLICE}, median of "
             f"{len(picks)} slices); {bounds[k]['bytes']} B, bound "
             f"{bounds[k]['bound_ms']:.4f} ms ({bounds[k]['bound_by']})")
-        if k in floors:
-            ctl = FETCH_CONTROLS[k]
-            say(f"fetch: {k} in turns with its control: {med[k]:.4f} ms "
-                f"(moved {med[k + '_moved']:.4f}), {ctl} "
-                f"{med[k + '_' + ctl]:.4f} ms (moved "
-                f"{med[k + '_' + ctl + '_moved']:.4f}); sector floor "
-                f"{floors[k]['sector_bytes']} B, "
-                f"{floors[k]['sector_floor_ms']:.4f} ms")
+        say("fetch: " + turns_line(k, FETCH_CONTROLS[k], med, floors,
+                                   "salt 1" if k == "T3" else "moved"))
     fetch_edge_cases(pa, errs)
     del d, d_moved, orig, rdev, row_sums
     torch.cuda.empty_cache()
@@ -1479,6 +1581,7 @@ def main(argv=None) -> int:
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.overlap.relation import _device_relation
+    from disco_tpu_torch.tools import exp_mxu_fetch as mf
 
     walls = StageWalls()
     tlog = logging.getLogger("disco_tpu_torch")
@@ -1504,22 +1607,30 @@ def main(argv=None) -> int:
         report = {k: v for f in reports for k, v in f.result().items()}
     say(f"build: {time.perf_counter() - t0:.2f} s in all: " + ", ".join(
         f"{name} {t:.2f} s" for name, t in done.items()))
+    def ring(shape):
+        return "{} pairs a tile, {} stages, {} blocks".format(
+            shape[0], shape[2], shape[1])
+
+    tile = "one block of 256 threads a 1024-pair tile"
     shapes = {  # at the main path's widths: Wp = 17, fused_mxu's Wb = 32
-        "window_compare_kernel": ("K3", fk.tiled_shape(17, 0, 1 << 22)),
-        "window_compare_fetch_kernel": ("K4, T2",
-                                        fk.tiled_shape(32, 32, 1 << 22)),
-        "window_compare_anchored_kernel": ("T1", fk.staged_shape(
-            "T1", 17, 17, 1 << 22)),
-        "window_compare_ring_both_kernel": ("K5", fk.staged_shape(
-            "K5", 0, 17, 1 << 22)),
-        "window_compare_staged_kernel": ("T1's control", None),
-        "window_compare_staged_both_kernel": ("K5's control", None),
-        "row_checksum_staged_kernel": ("T3", None)}
+        "window_compare_kernel": ("K3", ring(fk.tiled_shape(17, 0, 1 << 22))),
+        "window_compare_fetch_kernel": ("K4, T2", ring(
+            fk.tiled_shape(32, 32, 1 << 22))),
+        "window_compare_fetch_both_kernel": (
+            "K6", "four pairs a thread, 1024 pairs a block of 256 threads"),
+        "window_compare_fetch_both_direct_kernel": (
+            "K6's control", "one pair a thread"),
+        "window_compare_anchored_kernel": ("T1", ring(fk.staged_shape(
+            "T1", 17, 17, 1 << 22))),
+        "window_compare_ring_both_kernel": ("K5", ring(fk.staged_shape(
+            "K5", 0, 17, 1 << 22))),
+        "window_compare_staged_kernel": ("T1's control", tile),
+        "window_compare_staged_both_kernel": ("K5's control", tile),
+        "row_checksum_ring_kernel": ("T3", ring((fk.TILE, *mf.checksum_shape(
+            17, 1 << 22)[::-1]))),
+        "row_checksum_staged_kernel": ("T3's control", tile)}
     for k, (regs, smem, st, ld) in report.items():
-        kid, shape = shapes[k]
-        where = ("one block of 256 threads a 1024-pair tile" if shape is None
-                 else "{} pairs a tile, {} stages, {} blocks".format(
-                     shape[0], shape[2], shape[1]))
+        kid, where = shapes[k]
         say(f"build: ptxas -v {k} ({kid}): {regs} registers, {smem} B static "
             f"shared memory, spills {st} B stored and {ld} B loaded; at the "
             f"main path's widths {where}")
@@ -1641,20 +1752,33 @@ def main(argv=None) -> int:
              "bound_by": bd["bound_by"], "library_ms": None}
         if k + "_held" in times:        # K1, K2, K6, K7, T3
             e["held_ms"] = times[k + "_held"]
-        if floors and k in floors:      # K3, K4, K5, T1, T2: the control
+        if floors and k in floors:      # all but K1, K2, K7: the control
             ctl = FETCH_CONTROLS.get(k, "direct")
             e.update(floors[k], **{
+                f"{ctl}_launches": n_all[f"{k}_{ctl}"],
                 f"{ctl}_ms": times[f"{k}_{ctl}"],
                 f"{ctl}_max_abs_err": errs[f"{k}_{ctl}"],
                 "ms_moved": times[k + "_moved"],
                 f"{ctl}_ms_moved": times[f"{k}_{ctl}_moved"]})
+            if k + "_held" in times:    # K6, T3
+                e.update({f"{ctl}_held_ms": times[f"{k}_{ctl}_held"],
+                          "held_ms_moved": times[k + "_held_moved"],
+                          f"{ctl}_held_ms_moved":
+                              times[f"{k}_{ctl}_held_moved"]})
         for kernel, (kid, _) in shapes.items():
             if k in kid.split(", "):
                 regs, smem, st, ld = report[kernel]
                 e.update(registers=regs, spill_store_bytes=st,
                          spill_load_bytes=ld)
+            elif kid == f"{k}'s control":
+                ctl = FETCH_CONTROLS.get(k, "direct")
+                regs, smem, st, ld = report[kernel]
+                e.update({f"{ctl}_registers": regs,
+                          f"{ctl}_spill_store_bytes": st,
+                          f"{ctl}_spill_load_bytes": ld})
         return e
 
+    n_all = {**v_launches, **f_launches}
     kernels = [
         entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
               launches["K1"], errs, med, bounds["K1"]),

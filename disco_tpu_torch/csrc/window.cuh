@@ -448,4 +448,40 @@ __device__ __forceinline__ void store_flags(uint8_t* ok, int64_t p, int64_t P,
   }
 }
 
+// ---------------------------------------------------------------------------
+// A row of the 16-word pack_lines16 table held in registers (K6 in
+// window_compare.cu; the designs of k6_designs.cu).
+constexpr int kRow16Words = 16;
+
+// Words d .. d + 16 of row r of a (n_rows, 16) table into w[0 .. 16]: the
+// row's 16-B chunks (d & ~3) / 4 .. (d & ~3) / 4 + 4 (a chunk outside the
+// row, or any chunk of a row outside the table, is zeros), shifted down by
+// d & 3 words in two select stages (a shift by a word count known only at
+// run time, without indexing registers at run time, which would put the
+// array in local memory).  Every word a window of at most 16 compared words
+// at word offset d reads (d .. d + 16) lies in w.  Only the first `chunks`
+// of the five chunks are loaded (the rest read as zeros).
+__device__ __forceinline__ void row_words(const uint32_t* __restrict__ table,
+                                          int64_t n_rows, int r, int d,
+                                          uint32_t (&w)[20], int chunks = 5) {
+  const int e = d & ~3, sh = d - e;
+  const bool in = r >= 0 && r < n_rows;
+  const uint4* g = reinterpret_cast<const uint4*>(
+      table + (in ? static_cast<int64_t>(r) * kRow16Words : 0));
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    const int ci = (e >> 2) + c;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (in && c < chunks && ci >= 0 && ci < kRow16Words / 4) x = __ldg(g + ci);
+    w[4 * c] = x.x;
+    w[4 * c + 1] = x.y;
+    w[4 * c + 2] = x.z;
+    w[4 * c + 3] = x.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 19; ++i) w[i] = (sh & 1) ? w[i + 1] : w[i];
+#pragma unroll
+  for (int i = 0; i < 17; ++i) w[i] = (sh & 2) ? w[i + 2] : w[i];
+}
+
 }  // namespace disco

@@ -70,7 +70,26 @@
 // wrappers send wider inputs to the one-thread-a-pair kernels, which take
 // any width.
 //
-// The other two kernels, and the _direct controls, run one thread a pair on
+// window_compare_fetch_both (K6) reads both rows of a pair from the 64-B
+// rows of the pack_lines16 table.  One thread a pair loading each compared
+// word of both rows with its own 4-B load (the _direct control, the kernel
+// before this one) is held back by the count of its loads, not by their
+// bytes or their spread over rows (PERF.md, section 6: a warp staging its
+// pairs' rows in shared memory by coalesced copies was slower than the
+// direct kernel, a grid whose blocks walked contiguous runs of pairs to
+// keep read2's band in L1 gained nothing, and each cut in load
+// instructions gained).  So a thread takes four consecutive pairs, loads
+// their geometry by five streaming 16-B loads (which leave L1 to the rows)
+// and stores their four flags by one 4-B store, and reads each row as the
+// 16-B chunks that hold words d .. d + 16 of it (d = o >> 4), aligned in
+// registers by two select stages (row_words); the window's words are then
+// compared without an early exit.  At most 64 registers (four blocks, 32
+// warps an SM), no shared memory.  A window of more than 16 compared words
+// (n > 256 bases) takes the checked readers, so the result is exact for
+// every input; a table that is not 16-B aligned takes the direct kernel.
+// tools/exp_k6_designs.py times the other designs (csrc/k6_designs.cu).
+//
+// The other kernel (K7), and the _direct controls, run one thread a pair on
 // its own rows:
 //   - a (W, P) column layout puts neighbouring threads on neighbouring
 //     words; a check reads only the ceil(n/16) + 1 words its window spans
@@ -97,6 +116,7 @@ namespace {
 using disco::ColumnRow;
 using disco::blocks_for;
 using disco::kThreads;
+using disco::row_words;
 using disco::table_row;
 using disco::window_equal;
 using disco::window_equal_at;
@@ -142,8 +162,93 @@ window_compare_fetch_kernel(const uint32_t* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
-// one thread a pair: K6, K7, and the controls of K3 and K4 (the kernels of
-// window_compare and window_compare_fetch before they were tiled)
+// K6: four consecutive pairs a thread, each row by 16-B loads
+// ---------------------------------------------------------------------------
+constexpr int kRowWords = disco::kRow16Words;  // a pack_lines16 row
+constexpr int kPairs = 4;         // consecutive pairs a thread
+constexpr int kBothBlocksPerSm = 4;  // <= 64 registers: 32 warps an SM
+
+// a@o1 == b@o2 over n bases for rows r1 and r2 of the table: windows of at
+// most 16 compared words (n <= 256, all K6's path makes) from row_words,
+// every word compared without an early exit; any other window through the
+// checked readers.
+__device__ __forceinline__ bool both16_equal(const uint32_t* __restrict__ table,
+                                             int64_t n_rows, int r1, int r2,
+                                             int o1, int o2, int n) {
+  if (n <= 0) return true;
+  const int nw = (n >> 4) + ((n & 15) != 0);
+  if (nw > kRowWords)
+    return window_equal(table_row(table, n_rows, kRowWords, r1), o1,
+                        table_row(table, n_rows, kRowWords, r2), o2, n);
+  uint32_t a[20], b[20];
+  row_words(table, n_rows, r1, o1 >> 4, a);
+  row_words(table, n_rows, r2, o2 >> 4, b);
+  const int s1 = (o1 & 15) << 1, s2 = (o2 & 15) << 1;
+  const uint32_t last = 0xFFFFFFFFu << (2 * (16 * nw - n));
+  uint32_t diff = 0;
+#pragma unroll
+  for (int i = 0; i < kRowWords; ++i) {
+    if (i < nw) {
+      const uint32_t x = __funnelshift_l(a[i + 1], a[i], s1) ^
+                         __funnelshift_l(b[i + 1], b[i], s2);
+      diff |= i + 1 == nw ? x & last : x;
+    }
+  }
+  return diff == 0;
+}
+
+__global__ void __launch_bounds__(kThreads, kBothBlocksPerSm)
+window_compare_fetch_both_kernel(const uint32_t* __restrict__ table,
+                                 int64_t n_rows,
+                                 const int32_t* __restrict__ rows1,
+                                 const int32_t* __restrict__ rows2,
+                                 int64_t P,
+                                 const int32_t* __restrict__ o1,
+                                 const int32_t* __restrict__ o2,
+                                 const int32_t* __restrict__ n,
+                                 uint8_t* __restrict__ ok) {
+  const int64_t p =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kPairs;
+  if (p >= P) return;
+  const int32_t* src[5] = {rows1, rows2, o1, o2, n};
+  uintptr_t bits = reinterpret_cast<uintptr_t>(ok) & 3;
+#pragma unroll
+  for (int a = 0; a < 5; ++a) bits |= reinterpret_cast<uintptr_t>(src[a]) & 15;
+  const bool vec = bits == 0 && p + kPairs <= P;
+  int g[5][kPairs];
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+    if (vec) {  // streaming loads: they leave L1 to the rows
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(src[a] + p));
+      g[a][0] = x.x;
+      g[a][1] = x.y;
+      g[a][2] = x.z;
+      g[a][3] = x.w;
+    } else {
+#pragma unroll
+      for (int m = 0; m < kPairs; ++m)
+        g[a][m] = p + m < P ? __ldg(src[a] + p + m) : 0;
+    }
+  }
+  unsigned flags = 0;
+#pragma unroll
+  for (int m = 0; m < kPairs; ++m)
+    flags |= static_cast<unsigned>(both16_equal(table, n_rows, g[0][m],
+                                                g[1][m], g[2][m], g[3][m],
+                                                g[4][m]))
+             << (8 * m);
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(ok + p) = flags;
+  } else {
+    for (int m = 0; m < kPairs && p + m < P; ++m)
+      ok[p + m] = (flags >> (8 * m)) & 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// one thread a pair: K7, and the controls of K3, K4 and K6 (the kernels of
+// window_compare, window_compare_fetch and window_compare_fetch_both before
+// their redesigns)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 window_compare_direct_kernel(const uint32_t* __restrict__ a,
@@ -177,7 +282,7 @@ window_compare_fetch_direct_kernel(const uint32_t* __restrict__ table,
 }
 
 __global__ void __launch_bounds__(kThreads)
-window_compare_fetch_both_kernel(const uint32_t* __restrict__ table,
+window_compare_fetch_both_direct_kernel(const uint32_t* __restrict__ table,
                                  int64_t n_rows, int wt,
                                  const int32_t* __restrict__ rows1,
                                  const int32_t* __restrict__ rows2,
@@ -300,15 +405,36 @@ int disco_window_compare_fetch_direct(const void* table, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+int disco_window_compare_fetch_both_direct(const void* table,
+                                           int64_t n_rows, int wt,
+                                           const void* rows1,
+                                           const void* rows2, int64_t P,
+                                           const void* o1, const void* o2,
+                                           const void* n, void* ok,
+                                           void* stream) {
+  if (P <= 0) return 0;
+  window_compare_fetch_both_direct_kernel<<<blocks_for(P), kThreads, 0,
+                                            as_stream(stream)>>>(
+      u32(table), n_rows, wt, i32(rows1), i32(rows2), P, i32(o1), i32(o2),
+      i32(n), u8(ok));
+  return static_cast<int>(cudaGetLastError());
+}
+
 int disco_window_compare_fetch_both(const void* table, int64_t n_rows,
                                     int wt, const void* rows1,
                                     const void* rows2, int64_t P,
                                     const void* o1, const void* o2,
                                     const void* n, void* ok, void* stream) {
   if (P <= 0) return 0;
-  window_compare_fetch_both_kernel<<<blocks_for(P), kThreads, 0,
+  if (wt != kRowWords) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(table) & 15)   // no 16-B row loads
+    return disco_window_compare_fetch_both_direct(table, n_rows, wt, rows1,
+                                                  rows2, P, o1, o2, n, ok,
+                                                  stream);
+  const int64_t threads = (P + kPairs - 1) / kPairs;
+  window_compare_fetch_both_kernel<<<blocks_for(threads), kThreads, 0,
                                      as_stream(stream)>>>(
-      u32(table), n_rows, wt, i32(rows1), i32(rows2), P, i32(o1), i32(o2),
+      u32(table), n_rows, i32(rows1), i32(rows2), P, i32(o1), i32(o2),
       i32(n), u8(ok));
   return static_cast<int>(cudaGetLastError());
 }

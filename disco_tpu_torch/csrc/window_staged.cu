@@ -13,13 +13,15 @@
 //                                  64-row window anchored at the 1024-pair
 //                                  tile's first row & ~3; read2's row as
 //                                  (Wb, P) columns.
-//   row_checksum_staged         <- tools/exp_mxu_fetch.py::main (closure
+//   row_checksum_ring           <- tools/exp_mxu_fetch.py::main (closure
 //                                  kern, T3): sum(word & 0x7FFF) over the
 //                                  words of row rows[p] + salt, from a
-//                                  32-row window at bases[tile] + salt.
-//   window_compare_staged_both, window_compare_staged: K5's and T1's kernels
-//   as they were before they overlapped their copies (the _unpipelined
-//   controls, on no path; see below).
+//                                  32-row window at bases[tile] + salt
+//                                  (row_checksum_ring_any at widths other
+//                                  than the main path's 17 words).
+//   window_compare_staged_both, window_compare_staged, row_checksum_staged:
+//   K5's, T1's and T3's kernels as they were before they overlapped their
+//   copies (the _unpipelined controls, on no path; see below).
 //
 // tools/exp_fetch_variants.py::verify_pipe_nc (T2) runs K4's Pallas body
 // (_mxu2_kernel) without its guard; its Hopper kernel is K4's
@@ -77,6 +79,20 @@
 //     kernel took a fifth longer (PERF.md, section 6).
 // Any other window reads through staged_row_at, which reads device memory
 // past the staged words or outside the window.
+//   - T3 walks its 1024-pair tiles on a persistent grid with three stages
+//     (two tiles' windows in flight while one is summed), the next tile's
+//     rows loaded a tile ahead, four consecutive pairs a thread (one
+//     streaming 16-B load of rows, one streaming 16-B store of sums).  Its window is 32 consecutive
+//     rows of a row-major table, one span of 32 wt words: at an odd width
+//     the span keeps the table's stride, which is odd and so already the
+//     conflict-free layout, and is copied by 16-B cp.async.cg with 4-B
+//     copies up to the first 16-B boundary and after the last (stage_span;
+//     exp_mxu_fetch.span_copies states the pieces); an even width is
+//     copied row by row at stride wt + 1.  A pair checks once that its row
+//     lies in the window and then sums the row's words with no checks; the
+//     four pairs' sums are interleaved, four independent shared loads a
+//     word.  Rows too wide for three stages (over 605 words) go to the
+//     copy-then-sum kernel, which the launcher counts as T3's.
 //
 // Each launcher is a plain C function: it launches on the given stream,
 // does not synchronise, allocates nothing, and returns the CUDA error of
@@ -263,6 +279,224 @@ window_compare_ring_both_kernel(const uint32_t* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
+// T3: a ring of 1024-pair tiles, four consecutive pairs a thread
+// ---------------------------------------------------------------------------
+constexpr int kSumStages = 3;        // the tile summed and two in flight
+constexpr int kSumBlocksPerSm = 4;   // <= 64 registers
+constexpr int kSumPerThread = kTilePairs / kThreads;
+static_assert(kSumPerThread == 4, "one 16-B load of rows a thread");
+
+// Words of one stage: the 32-row window at stride wt | 1, and 4 words of
+// room for the span copy's alignment shift (a multiple of 4, so that every
+// stage starts 16-B aligned).
+__host__ __device__ inline int sum_stage_words(int wt) {
+  return kSumRows * (wt | 1) + 4;
+}
+
+// The word of a stage where row w.base of an odd-width window lands: the
+// span copy keeps the table's 16-B phase, so its 16-B pieces are aligned
+// on both sides.  Even widths are copied row by row at the odd stride
+// wt + 1, unshifted.
+__device__ __forceinline__ int span_shift(const uint32_t* table, int64_t base,
+                                          int wt) {
+  return (wt & 1) ? static_cast<int>((reinterpret_cast<uintptr_t>(
+                                          table + base * wt) >> 2) & 3)
+                  : 0;
+}
+
+// Start (no wait) the block's copies of window `w` (its smem already
+// shifted by span_shift).  An odd width keeps the table's own stride, so
+// the window's rows are one span of rows * wt words in both memories:
+// 4-B copies up to the first 16-B boundary, 16-B cp.async.cg pieces, and
+// 4-B copies of the rest (exp_mxu_fetch.span_copies states the pieces).
+// An even width is staged row by row at stride wt + 1 (stage_rows_stepped).
+__device__ __forceinline__ void stage_span(const RowWindow& w,
+                                           const uint32_t* table, int wt) {
+  if (!(wt & 1)) {
+    disco::stage_rows_stepped(w, table, wt);
+    return;
+  }
+  const int total = w.rows * wt;
+  const uint32_t* src = table + w.base * wt;
+  const int head = min((4 - static_cast<int>(
+                            (reinterpret_cast<uintptr_t>(src) >> 2) & 3)) & 3,
+                       total);
+  const int chunks = (total - head) >> 2;
+  const int tail = total - head - 4 * chunks;
+  const int i = threadIdx.x;
+  if (i < head) disco::cp_async4(w.smem + i, src + i);
+  for (int c = i; c < chunks; c += kThreads)
+    disco::cp_async16(w.smem + head + 4 * c, src + head + 4 * c);
+  if (i < tail) {
+    const int o = head + 4 * chunks + i;
+    disco::cp_async4(w.smem + o, src + o);
+  }
+}
+
+// The 32-row window of the tile whose first row is `first` (its base row
+// plus the salt) in stage `slot`: row_window's rows, cut to the table, at
+// span_shift.
+__device__ __forceinline__ RowWindow sum_window(uint32_t* smem, int slot,
+                                                int64_t first,
+                                                const uint32_t* table,
+                                                int64_t n_rows, int wt) {
+  RowWindow w = row_window(smem + slot * sum_stage_words(wt), first,
+                           first + kSumRows - 1, kSumRows, n_rows, wt);
+  w.smem += span_shift(table, w.base, wt);
+  return w;
+}
+
+// The tiles blockIdx.x, blockIdx.x + gridDim.x, ... of T3 (see the top of
+// this file); kWt > 0 fixes the width at compile time (the main path's 17
+// words), 0 takes wt.
+template <int kWt>
+__device__ __forceinline__ void checksum_tiles(
+    uint32_t* smem, const uint32_t* __restrict__ table, int64_t n_rows,
+    int wt, const int32_t* __restrict__ rows, int64_t P,
+    const int32_t* __restrict__ bases, int salt, int32_t* __restrict__ out,
+    unsigned long long* __restrict__ misses) {
+  if (kWt > 0) wt = kWt;
+  const int stride = wt | 1;
+  const int64_t tiles = (P + kTilePairs - 1) / kTilePairs;
+  const int64_t step = gridDim.x;
+  // 16-B loads of rows and stores of sums where the pointers allow them,
+  // streaming (they leave L1 and L2 to the table)
+  const bool vec = ((reinterpret_cast<uintptr_t>(rows) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+
+  auto first_of = [&](int64_t t) -> int64_t {
+    return t < tiles ? static_cast<int64_t>(__ldg(bases + t)) + salt : 0;
+  };
+  auto load_rows = [&](int64_t t, int (&r)[kSumPerThread]) {
+    const int64_t p = t * kTilePairs + kSumPerThread * threadIdx.x;
+    if (vec && p + kSumPerThread <= P) {
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(rows + p));
+      r[0] = x.x;
+      r[1] = x.y;
+      r[2] = x.z;
+      r[3] = x.w;
+    } else {
+#pragma unroll
+      for (int m = 0; m < kSumPerThread; ++m)
+        r[m] = p + m < P ? __ldg(rows + p + m) : 0;
+    }
+  };
+  auto stage = [&](int slot, int64_t first) {
+    stage_span(sum_window(smem, slot, first, table, n_rows, wt), table, wt);
+  };
+
+  // Tile j of this block stages into slot j % kSumStages.  Iteration j
+  // waits for tile j's copies, syncs (every thread is then past tile j - 1),
+  // stages tile j + kSumStages - 1 into the slot tile j - 1 used, and sums
+  // tile j.  The window's first rows ride along in registers: f[i] is tile
+  // j + i's.
+  int64_t t = blockIdx.x;  // < tiles: the grid is no larger
+  int64_t f[kSumStages];
+#pragma unroll
+  for (int i = 0; i < kSumStages; ++i) f[i] = first_of(t + i * step);
+#pragma unroll
+  for (int i = 0; i + 1 < kSumStages; ++i) {
+    if (t + i * step < tiles) stage(i, f[i]);
+    disco::cp_async_commit();
+  }
+  int r[kSumPerThread];
+  load_rows(t, r);
+  int slot = 0, missed = 0;
+  for (; t < tiles; t += step) {
+    disco::cp_async_wait<kSumStages - 2>();
+    __syncthreads();
+    const int ahead = slot == 0 ? kSumStages - 1 : slot - 1;
+    if (t + (kSumStages - 1) * step < tiles)
+      stage(ahead, f[kSumStages - 1]);
+    disco::cp_async_commit();
+    int rn[kSumPerThread];
+    load_rows(t + step, rn);
+    const int64_t fn = first_of(t + kSumStages * step);
+
+    const RowWindow w = sum_window(smem, slot, f[0], table, n_rows, wt);
+    const int64_t p = t * kTilePairs + kSumPerThread * threadIdx.x;
+    int32_t sums[kSumPerThread] = {0, 0, 0, 0};
+    const uint32_t* s[kSumPerThread];
+    bool all = true;
+#pragma unroll
+    for (int m = 0; m < kSumPerThread; ++m) {
+      const int64_t k = static_cast<int64_t>(r[m]) + salt - w.base;
+      const bool staged = k >= 0 && k < w.rows;
+      missed += p + m < P && !staged;
+      all = all && staged;
+      s[m] = staged ? w.smem + k * stride : nullptr;
+    }
+    if (all) {
+      // the path's case: the four sums interleaved, four independent
+      // shared loads a word (one pair's sum after another waited on each
+      // load in turn: PERF.md, section 6)
+#pragma unroll 4
+      for (int c = 0; c < wt; ++c) {
+#pragma unroll
+        for (int m = 0; m < kSumPerThread; ++m)
+          sums[m] += static_cast<int32_t>(s[m][c] & 0x7FFFu);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kSumPerThread; ++m) {
+        const int64_t row = static_cast<int64_t>(r[m]) + salt;
+        if (s[m] != nullptr) {
+          for (int c = 0; c < wt; ++c)
+            sums[m] += static_cast<int32_t>(s[m][c] & 0x7FFFu);
+        } else if (row >= 0 && row < n_rows) {
+          const uint32_t* g = table + row * wt;
+          for (int c = 0; c < wt; ++c)
+            sums[m] += static_cast<int32_t>(__ldg(g + c) & 0x7FFFu);
+        }
+      }
+    }
+    if (vec && p + kSumPerThread <= P) {
+      __stcs(reinterpret_cast<int4*>(out + p),
+             make_int4(sums[0], sums[1], sums[2], sums[3]));
+    } else {
+#pragma unroll
+      for (int m = 0; m < kSumPerThread; ++m)
+        if (p + m < P) out[p + m] = sums[m];
+    }
+#pragma unroll
+    for (int m = 0; m < kSumPerThread; ++m) r[m] = rn[m];
+#pragma unroll
+    for (int i = 0; i + 1 < kSumStages; ++i) f[i] = f[i + 1];
+    f[kSumStages - 1] = fn;
+    slot = slot + 1 == kSumStages ? 0 : slot + 1;
+  }
+  disco::cp_async_wait<0>();  // the empty groups past the last tile
+  add_count(missed, misses);
+}
+
+// T3 at the main path's width (17 words: reads of 250 bp), and at any
+// width.
+constexpr int kPathWords = 17;
+
+__global__ void __launch_bounds__(kThreads, kSumBlocksPerSm)
+row_checksum_ring_kernel(const uint32_t* __restrict__ table, int64_t n_rows,
+                         int wt, const int32_t* __restrict__ rows, int64_t P,
+                         const int32_t* __restrict__ bases, int salt,
+                         int32_t* __restrict__ out,
+                         unsigned long long* __restrict__ misses) {
+  extern __shared__ uint4 smem4[];
+  checksum_tiles<kPathWords>(reinterpret_cast<uint32_t*>(smem4), table,
+                             n_rows, wt, rows, P, bases, salt, out, misses);
+}
+
+__global__ void __launch_bounds__(kThreads, kSumBlocksPerSm)
+row_checksum_ring_any_kernel(const uint32_t* __restrict__ table,
+                             int64_t n_rows, int wt,
+                             const int32_t* __restrict__ rows, int64_t P,
+                             const int32_t* __restrict__ bases, int salt,
+                             int32_t* __restrict__ out,
+                             unsigned long long* __restrict__ misses) {
+  extern __shared__ uint4 smem4[];
+  checksum_tiles<0>(reinterpret_cast<uint32_t*>(smem4), table, n_rows, wt,
+                    rows, P, bases, salt, out, misses);
+}
+
+// ---------------------------------------------------------------------------
 // T1 on the ring of tile_ring.cuh
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(ring::kMaxTile, ring::kBlocksPerSm)
@@ -429,6 +663,29 @@ cudaError_t both_shape(int ws, int64_t P, size_t* smem, unsigned* grid) {
                                grid);
 }
 
+// T3's kernel for rows of wt words.
+auto* sum_kernel(int wt) {
+  return wt == kPathWords ? row_checksum_ring_kernel
+                          : row_checksum_ring_any_kernel;
+}
+
+// Whether rows of wt words fit T3's ring: its kSumStages stages of
+// sum_stage_words(wt) in a block's shared memory (rows of at most 605
+// words).  Wider rows take the copy-then-sum kernel.
+bool sum_fits(int wt) {
+  return wt >= 1 && static_cast<int64_t>(kSumStages) * 4 *
+                            sum_stage_words(wt) <= ring::kSmemBytes;
+}
+
+// T3's ring at wt words a row (sum_fits): dynamic shared memory and
+// persistent grid.
+cudaError_t sum_shape(int wt, int64_t P, size_t* smem, unsigned* grid) {
+  if (!sum_fits(wt)) return cudaErrorInvalidValue;
+  *smem = static_cast<size_t>(kSumStages) * 4 * sum_stage_words(wt);
+  return ring::persistent_grid(sum_kernel(wt), kThreads, *smem,
+                               (P + kTilePairs - 1) / kTilePairs, grid);
+}
+
 }  // namespace
 
 extern "C" {
@@ -527,6 +784,21 @@ int disco_window_compare_staged_unpipelined(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch shape of T3 at wt words a row and P pairs: stages of its ring
+// and blocks, or *stages = 0 where the rows are too wide for the ring.
+int disco_row_checksum_shape(int wt, int64_t P, int* stages, int* grid) {
+  *stages = 0;
+  *grid = 0;
+  if (!sum_fits(wt)) return 0;
+  size_t smem;
+  unsigned g = 0;
+  const cudaError_t e = sum_shape(wt, P, &smem, &g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *stages = kSumStages;
+  *grid = static_cast<int>(g);
+  return 0;
+}
+
 int disco_row_checksum_staged(const void* table, int64_t n_rows, int wt,
                               const void* rows, int64_t P, const void* bases,
                               int salt, void* out, void* misses,
@@ -539,6 +811,26 @@ int disco_row_checksum_staged(const void* table, int64_t n_rows, int wt,
   if (bytes < 0) return static_cast<int>(err);
   row_checksum_staged_kernel<<<tiles_for(P), kThreads, bytes,
                                as_stream(stream)>>>(
+      u32(table), n_rows, wt, i32(rows), P, i32(bases), salt,
+      static_cast<int32_t*>(out), u64(misses));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3: the ring, or for rows too wide for its stages the copy-then-sum
+// kernel (disco_row_checksum_staged), which the caller counts as its own.
+int disco_row_checksum(const void* table, int64_t n_rows, int wt,
+                       const void* rows, int64_t P, const void* bases,
+                       int salt, void* out, void* misses, void* stream) {
+  if (P <= 0) return 0;
+  if (!sum_fits(wt))
+    return disco_row_checksum_staged(table, n_rows, wt, rows, P, bases, salt,
+                                     out, misses, stream);
+  size_t smem;
+  unsigned grid;
+  const cudaError_t e = sum_shape(wt, P, &smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto kernel = sum_kernel(wt);
+  kernel<<<grid, kThreads, smem, as_stream(stream)>>>(
       u32(table), n_rows, wt, i32(rows), P, i32(bases), salt,
       static_cast<int32_t*>(out), u64(misses));
   return static_cast<int>(cudaGetLastError());

@@ -28,7 +28,10 @@ The single check ok = a@o1 == b@o2 over n bases, in csrc/window_compare.cu:
   (lines, packed_all).
 - `verify_windows_fused_mxu_both16` (K6, TPU kernel `_mxu3_16_kernel`): both
   rows fetched inside the kernel from the `pack_lines16` table viewed as
-  16-word rows (reads of at most 256 bp).
+  16-word rows (reads of at most 256 bp), as the 16-B chunks that hold
+  each window's words (`row_words`), four pairs a thread.
+  `verify_windows_fused_mxu_both16_direct` launches its kernel of before,
+  one thread a pair loading each word: a timing control, on no path.
 The TPU versions need P to be a multiple of TILE, check a span guard and
 fall back through lax.cond; these take any P and have no guard, because a
 thread loads its own rows.  They return the same booleans.
@@ -113,6 +116,8 @@ def load_window():
             [vp, i64, i32, vp, i32, vp, i64] + [vp] * 5)
         lib.disco_window_compare_fetch_both.argtypes = (
             [vp, i64, i32, vp, vp, i64] + [vp] * 5)
+        lib.disco_window_compare_fetch_both_direct.argtypes = (
+            lib.disco_window_compare_fetch_both.argtypes)
         lib.disco_window_compare_aligned.argtypes = (
             [vp, vp, i32, i64] + [vp] * 5)
         lib.disco_window_compare_direct.argtypes = (
@@ -122,6 +127,7 @@ def load_window():
         lib.disco_window_compare_shape.argtypes = [i32, i32, i64] + [vp] * 3
         for fn in (lib.disco_window_compare, lib.disco_window_compare_fetch,
                    lib.disco_window_compare_fetch_both,
+                   lib.disco_window_compare_fetch_both_direct,
                    lib.disco_window_compare_aligned,
                    lib.disco_window_compare_direct,
                    lib.disco_window_compare_fetch_direct,
@@ -133,7 +139,7 @@ def load_window():
 
 def load_staged():
     """Build (nvcc, sm_90a) and load the staged-window kernels (K5, T1,
-    T3, and the controls of K5 and T1); returns the library."""
+    T3, and the controls of K5, T1 and T3); returns the library."""
     global _STAGED_LIB
     if _STAGED_LIB is None:
         lib = kernels.load_cuda("window_staged",
@@ -147,14 +153,18 @@ def load_staged():
         lib.disco_window_compare_staged_unpipelined.argtypes = sync
         lib.disco_window_staged_shape.argtypes = ([i32, i32, i32, i64]
                                                   + [vp] * 3)
-        lib.disco_row_checksum_staged.argtypes = [vp, i64, i32, vp, i64, vp,
-                                                  i32, vp, vp, vp]
+        checksum = [vp, i64, i32, vp, i64, vp, i32, vp, vp, vp]
+        lib.disco_row_checksum.argtypes = checksum
+        lib.disco_row_checksum_staged.argtypes = checksum
+        lib.disco_row_checksum_shape.argtypes = [i32, i64, vp, vp]
         for fn in (lib.disco_window_compare_staged_both,
                    lib.disco_window_compare_staged_both_unpipelined,
                    lib.disco_window_compare_staged,
                    lib.disco_window_compare_staged_unpipelined,
                    lib.disco_window_staged_shape,
-                   lib.disco_row_checksum_staged):
+                   lib.disco_row_checksum,
+                   lib.disco_row_checksum_staged,
+                   lib.disco_row_checksum_shape):
             fn.restype = ctypes.c_int
         _STAGED_LIB = lib
     return _STAGED_LIB
@@ -603,13 +613,10 @@ def verify_windows_fused_mxu(packed_lines, rows1, rows2, o1, o2, n, *,
                                o2, n)
 
 
-def verify_windows_fused_mxu_both16(packed_lines16, rows1, rows2, o1, o2, n,
-                                    *, n_words):
-    """verify_windows with both rows fetched inside the kernel from the
-    `pack_lines16` table: packed_lines16 (L, 128) int32; rows1/rows2 (P,)
-    int32 rows of that table (after `relabel_workload`, both sides lie in
-    narrow bands of rows); o1/o2/n (P,) int32.  Reads of at most 256 bp:
-    raises for n_words > 16.  Returns (P,) bool."""
+def _fused_mxu_both16(kernel, fn, packed_lines16, rows1, rows2, o1, o2, n,
+                      n_words):
+    """K6's checks, then its plain version (CPU) or `kernel` of the window
+    library; counts the launch in fn.launches."""
     if n_words > W16:
         raise ValueError(f"n_words = {n_words}: the 16-word table holds "
                          "reads of at most 256 bp")
@@ -624,16 +631,64 @@ def verify_windows_fused_mxu_both16(packed_lines16, rows1, rows2, o1, o2, n,
     table = packed_lines16.view(-1, W16)
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        err = load_window().disco_window_compare_fetch_both(
+        err = getattr(load_window(), kernel)(
             table.data_ptr(), table.shape[0], W16, rows1.data_ptr(),
             rows2.data_ptr(), p, o1.data_ptr(), o2.data_ptr(), n.data_ptr(),
             ok.data_ptr(), _stream(dev))
-    _raise_on(err, "window_compare_fetch_both")
-    verify_windows_fused_mxu_both16.launches += 1
+    _raise_on(err, kernel)
+    fn.launches += 1
     return ok
 
 
+def row_words(table, rows, d):
+    """The words K6's kernel holds of each pair's row (csrc/window.cuh
+    row_words): words d .. d + 16 of row `rows` of the
+    (R, 16) int32 table, from the row's 16-B chunks (d & ~3) / 4 ..
+    (d & ~3) / 4 + 4 shifted down by d & 3 words; a chunk outside the row,
+    or a row outside the table, reads zeros.  rows, d: (P,) integer
+    tensors.  Returns (P, 17) int32."""
+    n_rows = table.shape[0]
+    r, d = rows.long(), d.long()
+    e = d & ~3
+    chunk = (e >> 2)[:, None] + torch.arange(5, device=d.device)
+    held = ((r >= 0) & (r < n_rows))[:, None] & (chunk >= 0) & (chunk < 4)
+    quads = table.view(n_rows, 4, 4)[r.clamp(0, max(n_rows - 1, 0))]
+    words = quads[torch.arange(len(r), device=d.device)[:, None],
+                  chunk.clamp(0, 3)]
+    words = torch.where(held[:, :, None], words, 0).reshape(len(r), 20)
+    return words.gather(1, (d - e)[:, None] + torch.arange(17,
+                                                            device=d.device))
+
+
+def verify_windows_fused_mxu_both16(packed_lines16, rows1, rows2, o1, o2, n,
+                                    *, n_words):
+    """verify_windows with both rows fetched inside the kernel from the
+    `pack_lines16` table: packed_lines16 (L, 128) int32; rows1/rows2 (P,)
+    int32 rows of that table (after `relabel_workload`, both sides lie in
+    narrow bands of rows); o1/o2/n (P,) int32.  Reads of at most 256 bp:
+    raises for n_words > 16.  Returns (P,) bool.  A thread of the kernel
+    takes four consecutive pairs and reads each row as the 16-B chunks
+    that hold the window's words (`row_words`)."""
+    return _fused_mxu_both16("disco_window_compare_fetch_both",
+                             verify_windows_fused_mxu_both16, packed_lines16,
+                             rows1, rows2, o1, o2, n, n_words)
+
+
 verify_windows_fused_mxu_both16.launches = 0
+
+
+def verify_windows_fused_mxu_both16_direct(packed_lines16, rows1, rows2, o1,
+                                           o2, n, *, n_words):
+    """`verify_windows_fused_mxu_both16` through its kernel of before, one
+    thread a pair loading its rows' words from device memory: a timing
+    control, on no path."""
+    return _fused_mxu_both16("disco_window_compare_fetch_both_direct",
+                             verify_windows_fused_mxu_both16_direct,
+                             packed_lines16, rows1, rows2, o1, o2, n,
+                             n_words)
+
+
+verify_windows_fused_mxu_both16_direct.launches = 0
 
 
 # ---------------------------------------------------------------------------

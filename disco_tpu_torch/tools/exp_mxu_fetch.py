@@ -17,6 +17,7 @@ candidates with read1 sorted.  The salt-0 call must equal the tool's numpy
 checksum; the rates are rows per second over calls with salt i % 2 (CUDA
 events).  --device must name a CUDA device."""
 import argparse
+import ctypes
 import sys
 
 import numpy as np
@@ -54,15 +55,50 @@ def checksum_misses(n_rows, rows, bases, salt):
                             SUM_ROWS, n_rows)
 
 
-def fetch_checksum(table, rows, bases, salt: int):
-    """T3: out[p] = sum over the words w of row rows[p] + salt of
-    (table[rows[p] + salt, w] & 0x7FFF), with tile t (pairs [1024 t,
-    1024 t + 1024)) reading its rows from a window of 32 rows at
-    bases[t] + salt, staged in shared memory.  table: (R, W) int32; rows:
-    (P,) int32, best sorted; bases: (ceil(P / 1024),) int32, the tool's
-    tile first rows; salt: an int (0 or 1 in the tool).  A row outside the
-    table sums to 0.  Returns (P,) int32; `out_of_window` then holds the
-    row reads outside the windows."""
+def span_copies(n_rows, wt, first, offset=0):
+    """The copies T3's ring makes to stage the window of a tile whose first
+    row is `first` (its base row plus the salt): rows [max(first, 0),
+    min(first + 32, n_rows)) of the (n_rows, wt) table.  `offset` is the
+    table's 16-B phase in words (its address / 4 mod 4).  An odd wt keeps
+    the table's stride, so the window is one span of rows * wt words: 4-B
+    copies up to the first 16-B boundary of the table, 16-B copies, and
+    4-B copies of the rest, landing `shift` words into the stage so that
+    both sides of a 16-B copy are aligned.  An even wt is copied a word at a
+    time, row by row, at stride wt + 1.  Returns (src, dst, width) int64
+    arrays: table word (from the table's first), stage word (from the
+    stage's 16-B aligned start) and words (1 or 4) of each copy, and
+    `shift`."""
+    lo = max(first, 0)
+    rows = max(min(first + SUM_ROWS, n_rows) - lo, 0)
+    if wt % 2 == 0:
+        k, c = np.divmod(np.arange(rows * wt), wt)
+        src = (lo + k) * wt + c
+        return src, k * (wt + 1) + c, np.ones(len(src), np.int64), 0
+    src0, total = lo * wt, rows * wt
+    shift = (offset + src0) % 4
+    head = min((4 - shift) % 4, total)
+    chunks = (total - head) // 4
+    starts = np.concatenate([np.arange(head), head + 4 * np.arange(chunks),
+                             np.arange(head + 4 * chunks, total)])
+    width = np.concatenate([np.ones(head, np.int64),
+                            np.full(chunks, 4, np.int64),
+                            np.ones(total - head - 4 * chunks, np.int64)])
+    return src0 + starts, shift + starts, width, shift
+
+
+def checksum_shape(wt, p):
+    """T3's launch shape at wt words a row and p pairs, on the current CUDA
+    device: (stages of its ring, blocks); stages 0 where the rows are too
+    wide for the ring and the copy-then-sum kernel takes them."""
+    out = [ctypes.c_int() for _ in range(2)]
+    fk._raise_on(fk.load_staged().disco_row_checksum_shape(
+        wt, p, *(ctypes.addressof(x) for x in out)), "row_checksum_shape")
+    return tuple(x.value for x in out)
+
+
+def _checksum(kernel, fn, table, rows, bases, salt):
+    """T3's checks, then its plain version (CPU) or `kernel` of the staged
+    library; sets fn.out_of_window and counts the launch in fn.launches."""
     if table.dim() != 2:
         raise ValueError(f"table of shape {tuple(table.shape)}, not (R, W)")
     p = rows.numel()
@@ -72,26 +108,53 @@ def fetch_checksum(table, rows, bases, salt: int):
         raise ValueError(f"bases of shape {tuple(bases.shape)}, not ({nt},)")
     n_rows, w = table.shape
     if dev.type == "cpu":
-        fetch_checksum.out_of_window = checksum_misses(n_rows, rows, bases,
-                                                       salt)
+        fn.out_of_window = checksum_misses(n_rows, rows, bases, salt)
         return fetch_checksum_plain(table, rows, bases, salt)
     out = torch.empty(p, dtype=torch.int32, device=dev)
     misses = torch.zeros(1, dtype=torch.int64, device=dev)
-    fetch_checksum.out_of_window = misses[0]
+    fn.out_of_window = misses[0]
     if p == 0:
         return out
     with torch.cuda.device(dev):
-        err = fk.load_staged().disco_row_checksum_staged(
+        err = getattr(fk.load_staged(), kernel)(
             table.data_ptr(), n_rows, w, rows.data_ptr(), p,
             bases.data_ptr(), int(salt), out.data_ptr(), misses.data_ptr(),
             fk._stream(dev))
-    fk._raise_on(err, "row_checksum_staged")
-    fetch_checksum.launches += 1
+    fk._raise_on(err, kernel)
+    fn.launches += 1
     return out
+
+
+def fetch_checksum(table, rows, bases, salt: int):
+    """T3: out[p] = sum over the words w of row rows[p] + salt of
+    (table[rows[p] + salt, w] & 0x7FFF), with tile t (pairs [1024 t,
+    1024 t + 1024)) reading its rows from a window of 32 rows at
+    bases[t] + salt, staged in shared memory.  table: (R, W) int32; rows:
+    (P,) int32, best sorted; bases: (ceil(P / 1024),) int32, the tool's
+    tile first rows; salt: an int (0 or 1 in the tool).  A row outside the
+    table sums to 0.  Returns (P,) int32; `out_of_window` then holds the
+    row reads outside the windows.  The kernel walks the tiles on a ring of
+    stages (`checksum_shape`), the next tiles' windows copied while one is
+    summed; rows too wide for the ring take the copy-then-sum kernel of
+    `fetch_checksum_unpipelined`, counted here."""
+    return _checksum("disco_row_checksum", fetch_checksum, table, rows,
+                     bases, salt)
 
 
 fetch_checksum.launches = 0
 fetch_checksum.out_of_window = None
+
+
+def fetch_checksum_unpipelined(table, rows, bases, salt: int):
+    """`fetch_checksum` through the kernel it had before its copies
+    overlapped its sums (one block a tile: copy, wait, sync, sum): a timing
+    control, on no path."""
+    return _checksum("disco_row_checksum_staged", fetch_checksum_unpipelined,
+                     table, rows, bases, salt)
+
+
+fetch_checksum_unpipelined.launches = 0
+fetch_checksum_unpipelined.out_of_window = None
 
 
 def sorted_tiles(r1, max_tiles: int = 256):

@@ -1,8 +1,9 @@
 """The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
-K4, K5, K6, the one-thread-a-pair controls of K3 and K4 and the
+K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
-tools/exp_mxu_fetch.py: T3) against their plain versions, on a CUDA card.
+tools/exp_mxu_fetch.py: T3 and its unpipelined control) against their plain
+versions, on a CUDA card.
 Tolerance: exact — the outputs are booleans and integers.
 
 This file imports neither jax nor disco_tpu, so it also runs where only
@@ -223,12 +224,20 @@ def _single_cases(packed_all, rows1, rows2, o1, o2, n):
          (lines16, r1, r2, *g),
          lambda *a: port.verify_windows_fused_mxu_both16_plain(*a,
                                                                n_words=nw)),
+        ("K6 direct",
+         lambda *a: port.verify_windows_fused_mxu_both16_direct(*a,
+                                                                n_words=nw),
+         (lines16, r1, r2, *g),
+         lambda *a: port.verify_windows_fused_mxu_both16_plain(*a,
+                                                               n_words=nw)),
         ("K7", pallas_kernel.compare_windows, k7,
          pallas_kernel.compare_windows_plain),
     ]
 
 
 def _counter(name):
+    if name == "K6 direct":
+        return port.verify_windows_fused_mxu_both16_direct
     return {"K3": port.fused_compare, "K4": port.fused_compare_fetch,
             "K6": port.verify_windows_fused_mxu_both16,
             "K7": pallas_kernel.compare_windows}[name.split()[0]]
@@ -296,6 +305,10 @@ def test_single_kernels_read_zeros_past_row_end(cuda_device):
             lines = as_words(table.reshape(-1, 128), cuda_device)
             got = port.verify_windows_fused_mxu_both16(lines, *dev,
                                                        n_words=16)
+            control = port.verify_windows_fused_mxu_both16_direct(
+                lines, *dev, n_words=16)
+            torch.cuda.synchronize()
+            _assert_same([want], [control])
         torch.cuda.synchronize()
         _assert_same([want], [got])
         if name in ("K3", "K4"):             # the direct control
@@ -324,6 +337,87 @@ def test_single_kernels_read_zeros_past_row_end(cuda_device):
     torch.cuda.synchronize()
     _assert_same([want], [got])
     assert want.any() and not want.all()
+
+
+def _k6_long_windows(seed, n_rows=600, p=3001):
+    """A 16-word table and windows of 257 to 300 bases (more than the 16
+    compared words K6's fast path holds) at every bit phase, rows outside
+    the table at both ends, n = 0 on every seventh pair, and true matches
+    on every fourth; with the plain check over rows padded with zeros (the
+    kernels read zeros past the row).  Returns (lines16, rows1, rows2, o1,
+    o2, n, want), CPU tensors."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2 ** 32, (n_rows, 16), dtype=np.uint64).astype(
+        np.uint32)
+    i = np.arange(p)
+    rows1 = np.sort(rng.integers(-3, n_rows + 3, p))
+    same = i % 4 == 0
+    rows2 = np.where(same, rows1, rng.integers(-3, n_rows + 3, p))
+    o1 = rng.integers(0, 256, p) & ~15 | (i & 15)
+    o2 = np.where(same, o1, rng.integers(0, 256, p) & ~15 | (i >> 4) & 15)
+    n = rng.integers(257, 301, p)
+    n[::7] = 0
+    padded = np.zeros((n_rows + 6, 40), np.uint32)
+    padded[3:-3, :16] = table
+    g = [_t(x) for x in (o1, o2, n)]
+    want = port.window_check_plain(as_words(padded[rows1 + 3]),
+                                   as_words(padded[rows2 + 3]), *g)
+    return (as_words(table.reshape(-1, 128)), _t(rows1), _t(rows2), *g,
+            want)
+
+
+@pytest.mark.cuda
+def test_k6_windows_over_256_bases_and_a_misaligned_table(cuda_device):
+    """K6 and its control on windows of more than 16 compared words (the
+    checked readers) against the plain check over zero-padded rows; K6 on
+    a table that is not 16-B aligned (its direct kernel, counted as K6's
+    launch)."""
+    *args, want = _k6_long_windows(seed=41)
+    assert want.any() and not want.all()
+    dev = [x.to(cuda_device) for x in args]
+    for fn in (port.verify_windows_fused_mxu_both16,
+               port.verify_windows_fused_mxu_both16_direct):
+        got = fn(*dev, n_words=16)
+        torch.cuda.synchronize()
+        _assert_same([want], [got])
+    lines = dev[0]
+    flat = torch.zeros(lines.numel() + 4, dtype=torch.int32,
+                       device=cuda_device)
+    shifted = flat[1:1 + lines.numel()].view(lines.shape)
+    shifted.copy_(lines)
+    assert shifted.data_ptr() % 16
+    counts = (port.verify_windows_fused_mxu_both16.launches,
+              port.verify_windows_fused_mxu_both16_direct.launches)
+    got = port.verify_windows_fused_mxu_both16(shifted, *dev[1:], n_words=16)
+    torch.cuda.synchronize()
+    _assert_same([want], [got])
+    assert (port.verify_windows_fused_mxu_both16.launches,
+            port.verify_windows_fused_mxu_both16_direct.launches) == (
+                counts[0] + 1, counts[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 3001, 100_003])
+def test_k6_designs_match_plain(cuda_device, p):
+    """Every design of tools/exp_k6_designs.py on the batch of
+    test_single_kernels_match_plain (every bit phase, n = 0, true matches,
+    P not a multiple of 4 or of a block) and on windows of 257 to 300 bases
+    with rows outside the table."""
+    from disco_tpu_torch.tools import exp_k6_designs as kd
+    packed_all, rows1, rows2, geo = _batch(seed=43, p=p)
+    lines16 = as_words(port.pack_lines16(packed_all)[0])
+    g = [_t(x) for x in (np.sort(rows1), rows2, *geo[:3])]
+    want = port.verify_windows_fused_mxu_both16_plain(lines16, *g,
+                                                      n_words=16)
+    *long_args, long_want = _k6_long_windows(seed=p)
+    for args, w in (((lines16, *g), want), (long_args, long_want)):
+        dev = [x.to(cuda_device) for x in args]
+        for name in kd.DESIGNS:
+            got = kd.design(name, *dev, n_words=16)
+            torch.cuda.synchronize()
+            _assert_same([w], [got])
+        if p > 1:
+            assert w.any() and not w.all()
 
 
 @pytest.mark.cuda
@@ -359,6 +453,10 @@ def _staged_cases(packed_all, rows1, rows2, o1, o2, n):
         ("T3", lambda *a: mf.fetch_checksum(*a, 0), (table, r1, bases)),
         ("T3 salt 1", lambda *a: mf.fetch_checksum(*a, 1),
          (table, r1, bases)),
+        ("T3 unpipelined", lambda *a: mf.fetch_checksum_unpipelined(*a, 0),
+         (table, r1, bases)),
+        ("T3 unpipelined salt 1",
+         lambda *a: mf.fetch_checksum_unpipelined(*a, 1), (table, r1, bases)),
     ]
 
 
@@ -368,14 +466,19 @@ def _staged(name):
             "T1": fv.verify_sync,
             "T1 unpipelined": fv.verify_sync_unpipelined,
             "T2": fv.verify_pipe_nc,
-            "T3": mf.fetch_checksum}[name.replace(" salt 1", "")]
+            "T3": mf.fetch_checksum,
+            "T3 unpipelined": mf.fetch_checksum_unpipelined}[
+                name.replace(" salt 1", "")]
 
 
 def _past_the_rings():
-    """A P past T1's and K5's rings: more tiles than blocks x stages."""
-    return max(tile * blocks * stages + 5 for tile, blocks, stages in (
+    """A P past the rings of T1, K5 and T3: more tiles than blocks x
+    stages."""
+    stages, blocks = mf.checksum_shape(17, 1 << 40)
+    return max([tile * blocks * stages + 5 for tile, blocks, stages in (
         port.staged_shape("T1", 17, 17, 1 << 40),
-        port.staged_shape("K5", 0, 17, 1 << 40)))
+        port.staged_shape("K5", 0, 17, 1 << 40))] +
+        [port.TILE * blocks * stages + 5])
 
 
 @pytest.mark.cuda
@@ -455,21 +558,62 @@ def test_staged_kernels_read_zeros_past_row_end(cuda_device):
 
 
 @pytest.mark.cuda
-def test_checksum_wide_rows_and_rows_past_the_table(cuda_device):
-    """T3 over 400-word rows (51,328 B of staged rows: above the default
-    48 KB of shared memory) and rows past both ends of the table."""
+@pytest.mark.parametrize("wt", [16, 17, 400, 700])
+def test_checksum_wide_rows_and_rows_past_the_table(cuda_device, wt):
+    """T3 and its control over rows of 16 and 17 words (staged row by row,
+    and as one span), of 400 (three stages of 51,344 B: above the default
+    48 KB of shared memory) and of 700 words, too wide for the ring's
+    stages, which the copy-then-sum kernel takes under T3's count; rows
+    past both ends of the table, more tiles than blocks x stages, both
+    salts; the out-of-window counts equal checksum_misses."""
     rng = np.random.default_rng(29)
-    table = rng.integers(0, 2 ** 32, (300, 400), dtype=np.uint64).astype(
+    table = rng.integers(0, 2 ** 32, (300, wt), dtype=np.uint64).astype(
         np.uint32)
-    rows = np.sort(rng.integers(-2, 302, 2 * 1024 + 5))
-    bases = rows[::1024]
-    for salt in (0, 1):
+    stages, blocks = mf.checksum_shape(wt, 1 << 40)
+    assert (stages == 0) == (wt == 700)
+    for p in (2 * 1024 + 5, port.TILE * blocks * stages + 5):
+        rows = np.sort(rng.integers(-40, 340, p))
+        bases = rows[::1024]
         args = (as_words(table), _t(rows), _t(bases))
-        want = mf.fetch_checksum(*args, salt)
-        got = mf.fetch_checksum(*(a.to(cuda_device) for a in args), salt)
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-        assert (want == 0).any() and (want > 0).any()
+        for salt in (0, 1):
+            want = mf.fetch_checksum(*args, salt)
+            rule = int(mf.fetch_checksum.out_of_window)
+            assert rule > 0
+            for fn in (mf.fetch_checksum, mf.fetch_checksum_unpipelined):
+                before = fn.launches
+                got = fn(*(a.to(cuda_device) for a in args), salt)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.numpy())
+                assert int(fn.out_of_window) == rule
+            assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_public_wrappers_leave_the_controls_at_zero(cuda_device):
+    """K6's and T3's public wrappers launch their redesigned kernels (T3's
+    sums equal the tool's numpy checksum); the controls (`_direct`,
+    `_unpipelined`) count only their own calls."""
+    packed_all, rows1, rows2, geo = _batch(seed=31, p=5000)
+    rows1 = np.sort(rows1)
+    lines16 = as_words(port.pack_lines16(packed_all)[0], cuda_device)
+    g = [_t(x).to(cuda_device) for x in (rows1, rows2, *geo[:3])]
+    table = as_words(packed_all, cuda_device)
+    bases = g[0][::1024].contiguous()
+    controls = (port.verify_windows_fused_mxu_both16_direct,
+                mf.fetch_checksum_unpipelined)
+    before = [c.launches for c in controls]
+    k6, t3 = (port.verify_windows_fused_mxu_both16.launches,
+              mf.fetch_checksum.launches)
+    port.verify_windows_fused_mxu_both16(lines16, *g, n_words=16)
+    sums = mf.fetch_checksum(table, g[0], bases, 0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(sums.cpu().numpy(),
+                                  mf.checksum_numpy(packed_all, rows1))
+    assert [c.launches for c in controls] == before
+    assert (port.verify_windows_fused_mxu_both16.launches,
+            mf.fetch_checksum.launches) == (k6 + 1, t3 + 1)
 
 
 @pytest.mark.cuda

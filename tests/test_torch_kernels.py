@@ -81,13 +81,18 @@ def test_kernel_loaders_name_their_headers(monkeypatch):
         raise _Stop
 
     monkeypatch.setattr(kernels, "_build", fake_build)
-    for attr, loader in (("_LIB", fk.load), ("_WINDOW_LIB", fk.load_window),
-                         ("_STAGED_LIB", fk.load_staged)):
-        monkeypatch.setattr(fk, attr, None)
+    from disco_tpu_torch.tools import exp_k6_designs as kd
+
+    for module, attr, loader in ((fk, "_LIB", fk.load),
+                                 (fk, "_WINDOW_LIB", fk.load_window),
+                                 (fk, "_STAGED_LIB", fk.load_staged),
+                                 (kd, "_LIB", kd.load)):
+        monkeypatch.setattr(module, attr, None)
         with pytest.raises(_Stop):
             loader()
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sorted(seen) == sources == ["dual_compare.cu", "window_compare.cu",
+    assert sorted(seen) == sources == ["dual_compare.cu", "k6_designs.cu",
+                                       "window_compare.cu",
                                        "window_staged.cu"]
     def includes(path):
         return set(re.findall(r'#include "(\w+\.cuh)"', path.read_text()))
