@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of disco_tpu_torch's buildG on one NVIDIA card (H100).
+"""Smoke run of disco_tpu_torch's buildG and assemble on one NVIDIA card
+(H100).
 
     python3 chip_smoke.py [--genome-len 4600000] [--coverage 30]
 
@@ -77,7 +78,21 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    row reads, and edge-case batches (every bit phase, n = 0, P = 1, 255,
    1023, 1025, 3001 and past the rings of K5, T1 and T3, rows outside
    every window, windows past the row, T3 on rows of 17 and 32 words and
-   rows past both ends of the table; the controls too).
+   rows past both ends of the table; the controls too);
+9. assemble, reads to contigs and scaffolds (`python -m disco_tpu_torch
+   assemble -backend device`, through `cli.main` in this process, with
+   the shipped tests/golden/thresh146/cfg{,_2,_3}.cfg): on the golden
+   `mini`, run from its directory, every buildG file and every
+   fullsimplify output the reference's goldens hold must be equal; then
+   on phase 3's read set (`--write-par-graph-size 20000`), with the K1
+   and K2 counts set to 0 just before and read just after (K2 must be
+   above 0), its graph must equal phase 5's native files, and every file
+   under assembly/ and the two FinalCombined files must equal `simplify`
+   over those native files.  Prints the buildG and fullsimplify walls,
+   each `clock` stage, the host's peak RSS during the run (sampled every
+   10 ms, after the heap earlier phases freed is returned to the OS) and
+   at its start, the contigs' and scaffolds' counts and N50 from the port's
+   `stats`, and the card's name and power limit.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -106,19 +121,24 @@ torch.profiler: host functions by cumulative seconds, the device's busy
 time (the union of its kernel and copy intervals), its idle share, and the
 device operations by time.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
+Prints the kernels' JSON line (K1 and K2 also with `assemble_launches`,
+phase 9's counts), the card's name and power limit, and last
 {"ok": true, "device": {...}}."""
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import os
 import pathlib
+import resource
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -169,6 +189,18 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
            "_CheckpointInfo.txt")
+# phase 9: the parameter files of every iteration (the reference's
+# disco*.cfg), and the fullsimplify outputs the reference's goldens hold
+# (tests/test_fullsimplify_parity.py::OUTPUTS)
+CFG_DIR = ROOT / "tests" / "golden" / "thresh146"
+CFG_ARGS = ("-p", str(CFG_DIR / "cfg.cfg"), "-p2", str(CFG_DIR / "cfg_2.cfg"),
+            "-p3", str(CFG_DIR / "cfg_3.cfg"))
+SIMPLIFY_OUTPUTS = (
+    "phase_parsimplify_1.txt", "phase_initial_1.txt",
+    "phase_aggressive_1.txt", "phase_flow_1.txt", "phase_postflow_1.txt",
+    "phase_scaffold_1.txt", "dimacs_dump.txt", "scaffoldsFinal_1.fasta",
+    "UsedReads_1.txt", "scaffoldEdgesFinal_1.txt",
+    "scaffoldEdgeCoverageFinal_1.txt")
 
 
 class SmokeFailure(RuntimeError):
@@ -1557,6 +1589,179 @@ def ptxas_report(source, names):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: assemble, reads to contigs and scaffolds
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def timed_calls(module, name, walls):
+    """While open, every call of module.<name> stores its wall seconds in
+    walls[name]."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+class RssPeak:
+    """While open, a thread reads this process's resident set from
+    /proc/self/statm every `period` seconds and keeps the largest (the
+    kernel's own peak, VmHWM, cannot be reset on every host)."""
+
+    def __init__(self, period: float = 0.01):
+        self.period = period
+        self.start = self.peak = 0
+        self._stop = threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self) -> int:
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * self._page
+        self.peak = max(self.peak, rss)
+        return rss
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self):
+        self.start = self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        check(not self._thread.is_alive(), "the RSS sampler did not stop")
+        self._sample()
+
+
+def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
+    """`assemble -backend device` through the command line, in this
+    process: on the golden `mini` against the reference's outputs, then on
+    the full read set with the K1 and K2 counts set to 0 just before, its
+    graph against phase 5's native files and its assembly against
+    `simplify` over those native files.  Returns the launches."""
+    import torch
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.simplify import driver
+    from disco_tpu_torch.utils.logging import malloc_trim
+    from disco_tpu_torch.utils.stats import assembly_stats
+
+    gdir = ROOT / "tests" / "golden" / "mini"
+    out = tmp / "assemble_mini"
+    cwd = os.getcwd()
+    os.chdir(gdir)    # _ReadIDMap.txt records the input path as given
+    try:
+        rc = cli.main(["assemble", "-inP", "reads.fasta", "-d", str(out),
+                       "-o", "mini", *CFG_ARGS, "-backend", "device"])
+    finally:
+        os.chdir(cwd)
+    check(rc == 0, f"assemble on mini exited {rc}")
+    for suffix in OUTPUTS:
+        check((out / "graph" / f"mini{suffix}").read_bytes()
+              == (gdir / f"mini{suffix}").read_bytes(),
+              f"assemble: golden mini{suffix} differs")
+    for name in SIMPLIFY_OUTPUTS:
+        check((out / "assembly" / f"mini_{name}").read_bytes()
+              == (gdir / "simplify" / f"mini_{name}").read_bytes(),
+              f"assemble: golden mini_{name} differs")
+    say(f"assemble: golden mini: -backend device byte-identical to the "
+        f"reference's buildG ({len(OUTPUTS)} files) and fullsimplify "
+        f"({len(SIMPLIFY_OUTPUTS)} files) outputs")
+
+    # the full read set, the counts set to 0 just before; the heap that
+    # earlier phases freed goes back to the OS first, so that the resident
+    # set at the start is what the run inherits
+    out = tmp / "assemble"
+    calls = {}
+    walls.walls.clear()
+    gc.collect()
+    malloc_trim()
+    torch.cuda.synchronize()
+    fk.fused_compare_dual.launches = 0
+    fk.fused_compare_dual_fetch.launches = 0
+    t0 = time.perf_counter()
+    with timed_calls(pipeline, "run_buildg", calls), \
+            timed_calls(driver, "run_fullsimplify", calls), RssPeak() as rss:
+        rc = cli.main(["assemble", "-inP", str(fasta), "-d", str(out),
+                       "-o", "E", *CFG_ARGS, "-backend", "device",
+                       "--write-par-graph-size", "20000"])
+        torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = {"K1": fk.fused_compare_dual.launches,
+                "K2": fk.fused_compare_dual_fetch.launches}
+    stages = list(walls.walls)
+    check(rc == 0, f"assemble exited {rc}")
+    say(f"assemble: launches: K2 {launches['K2']}, K1 {launches['K1']}")
+    check(launches["K2"] > 0, "assemble -backend device never launched K2")
+    for suffix in OUTPUTS:
+        check((out / "graph" / f"E{suffix}").read_bytes()
+              == (tmp / f"native{suffix}").read_bytes(),
+              f"assemble's graph E{suffix} differs from the native buildG's")
+
+    # simplify over phase 5's native graph
+    simp = tmp / "simplify"
+    simp.mkdir()
+    t0 = time.perf_counter()
+    check(cli.main(["simplify", "-fpi", str(fasta),
+                    "-e", str(tmp / "native_0_parGraph.txt"),
+                    "-crd", str(tmp / "native_0_containedReads.txt"),
+                    "-o", str(simp / "E"), *CFG_ARGS]) == 0,
+          "simplify exited non-zero")
+    t_simp = time.perf_counter() - t0
+    asm = out / "assembly"
+    combined = {f"E_{k}FinalCombined.fasta": k
+                for k in ("contigs", "scaffolds")}
+    names = sorted(p.name for p in asm.iterdir())
+    check(sorted(set(names) - set(combined))
+          == sorted(p.name for p in simp.iterdir()),
+          f"assemble and simplify wrote other files: {names}")
+    for name in names:
+        if name in combined:
+            parts = sorted(simp.glob(f"E_{combined[name]}Final_*.fasta"))
+            want = b"".join(p.read_bytes() for p in parts)
+            check((out / name).read_bytes() == want,
+                  f"assemble's top-level {name} differs")
+        else:
+            want = (simp / name).read_bytes()
+        check((asm / name).read_bytes() == want,
+              f"assemble's {name} differs from simplify's")
+    say(f"assemble: graph equals the native buildG's ({len(OUTPUTS)} "
+        f"files); all {len(names)} files under assembly/ and the two "
+        "FinalCombined files equal simplify over the native graph")
+
+    say(f"assemble: wall {t_all:.2f} s: buildG {calls['run_buildg']:.2f} s, "
+        f"fullsimplify {calls['run_fullsimplify']:.2f} s; simplify alone "
+        f"{t_simp:.2f} s")
+    say("assemble: stages: " + ", ".join(f"{n} {t:.3f} s" for n, t in stages))
+    say(f"assemble: host peak RSS during assemble {rss.peak / 2**20:.0f} MiB, "
+        f"{rss.start / 2**20:.0f} MiB at its start, so the run added "
+        f"{(rss.peak - rss.start) / 2**20:.0f} MiB (sampled every "
+        f"{rss.period * 1000:.0f} ms; the process's peak since it started "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f} "
+        "MiB)")
+    for kind in ("contigs", "scaffolds"):
+        st = assembly_stats(str(out / f"E_{kind}FinalCombined.fasta"))
+        check(st.n_contigs > 0 and st.n50 > 0, f"no {kind}")
+        say(f"assemble: {kind}: {st.n_contigs} sequences, N50 {st.n50} bp, "
+            f"{st.total_len} bp in all, longest {st.max_len} bp")
+    say(f"assemble: card {card_line()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-len", type=int, default=4_600_000)
@@ -1744,6 +1949,11 @@ def main(argv=None) -> int:
         del reuse
         say(f"fetch: phase {time.perf_counter() - t0:.2f} s")
 
+        # ---- 9. assemble: reads to contigs and scaffolds ----------------
+        t0 = time.perf_counter()
+        a_launches = assemble_phase(tmp, fasta, walls)
+        say(f"assemble: phase {time.perf_counter() - t0:.2f} s")
+
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": n, "max_abs_err": errs[k],
@@ -1780,10 +1990,12 @@ def main(argv=None) -> int:
 
     n_all = {**v_launches, **f_launches}
     kernels = [
-        entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
-              launches["K1"], errs, med, bounds["K1"]),
-        entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE, K2_REPLACES,
-              launches["K2"], errs, med, bounds["K2"]),
+        dict(entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
+                   launches["K1"], errs, med, bounds["K1"]),
+             assemble_launches=a_launches["K1"]),
+        dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
+                   K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
+             assemble_launches=a_launches["K2"]),
     ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs,
                v_med, v_bounds[k], v_floors)
          for k, name, replaces in SINGLE_KERNELS] + [

@@ -1,13 +1,30 @@
-"""disco-tpu-torch command line: the `buildg` subcommand (the reference's
-`buildG` executable, src/BuildGraph/src/main.cpp:95-148; the counterpart
-of disco_tpu/cli.py's `buildg`).
+"""disco-tpu-torch command line: end-to-end assembly (the counterpart of
+disco_tpu/cli.py).
+
+`assemble` replaces the reference's bash layer (runDisco.sh:26-257): graph
+construction (buildG) -> graph simplification (fullsimplify) -> combined
+contig/scaffold FASTAs, with the same directory layout
+(<out>/graph/<prefix>_*, <out>/assembly/<prefix>_*) and per-iteration
+parameter files.  `buildg`, `simplify`, `parsimplify` and `stats` are the
+reference's buildG, fullsimplify and parsimplify executables and its
+assemblyStats.py.
 
 Usage:
+  python -m disco_tpu_torch assemble -inP reads.fasta -d out -o prefix \
+      -p disco.cfg [-p2 ...] [-p3 ...] [-m 30] [-obg|-osg] [-resimp] \
+      [-backend device|native|xla]
   python -m disco_tpu_torch buildg -pe reads.fasta -f out/prefix \
       [-se single.fasta] [-p disco.cfg | -m-ovl 30] [-m 8] [-w N] \
       [-backend device|native|xla]
+  python -m disco_tpu_torch simplify -fpi reads.fasta -e edges -crd crd \
+      -o prefix -p disco.cfg [-p2 ...] [-p3 ...]
+  python -m disco_tpu_torch parsimplify edgeFile outFile minOvl [threads]
+  python -m disco_tpu_torch stats [denovo|mapped] contigs.fasta
 """
 import argparse
+import glob
+import os
+import shutil
 import sys
 
 
@@ -21,6 +38,66 @@ def _cfg_min_overlap(path: str, default: int = 30) -> int:
     except OSError:
         pass
     return default
+
+
+def cmd_assemble(args) -> int:
+    """reads -> graph -> contigs and scaffolds.  -backend selects buildG's
+    overlap engine (default `default_backend()`: the device when a card is
+    present)."""
+    for flag, what in ((args.n and args.n > 1, "-n (distributed build)"),
+                       (args.rma, "-rma (dist-mem build)"),
+                       (args.ecc, "-ecc (BBTools preprocessing)")):
+        if flag:
+            raise NotImplementedError(f"assemble {what}: not yet ported")
+    from .buildg.pipeline import run_buildg
+    from .simplify.driver import run_fullsimplify
+
+    pair_files = []
+    if args.in1 and args.in2:
+        pair_files = [args.in1, args.in2]
+    inter_files = args.inP.split(",") if args.inP else []
+    single_files = args.inS.split(",") if args.inS else []
+    if not (pair_files or inter_files or single_files):
+        print("No input files specified (-in1/-in2, -inP, -inS).",
+              file=sys.stderr)
+        return 1
+
+    out = args.d
+    os.makedirs(os.path.join(out, "graph"), exist_ok=True)
+    asm_dir = os.path.join(out, "assembly")
+    if os.path.isdir(asm_dir) and args.resimp:
+        shutil.rmtree(asm_dir)
+    os.makedirs(asm_dir, exist_ok=True)
+
+    graph_prefix = os.path.join(out, "graph", args.o)
+    asm_prefix = os.path.join(out, "assembly", args.o)
+    min_ovl = _cfg_min_overlap(args.p) if args.p else args.m
+
+    # buildG phase: interleaved + separated pairs are "paired" inputs,
+    # singles are single (reference: runDisco.sh:195-257)
+    if not args.osg:
+        run_buildg(inter_files + pair_files, single_files, graph_prefix,
+                   min_overlap=min_ovl,
+                   write_par_graph_size=args.write_par_graph_size,
+                   backend=args.backend)
+
+    if not args.obg:
+        edge_files = sorted(glob.glob(graph_prefix + "_*_parGraph.txt"))
+        crd_files = sorted(glob.glob(graph_prefix + "_*_containedReads.txt"))
+        param_files = [p for p in (args.p, args.p2 or args.p,
+                                   args.p3 or args.p2 or args.p) if p]
+        run_fullsimplify(single_files, pair_files, inter_files, edge_files,
+                         crd_files, asm_prefix,
+                         param_files=param_files or None)
+        for kind in ("contigs", "scaffolds"):
+            parts = sorted(glob.glob(f"{asm_prefix}_{kind}Final_*.fasta"))
+            combined = f"{asm_prefix}_{kind}FinalCombined.fasta"
+            with open(combined, "w") as outf:
+                for p in parts:
+                    with open(p) as inf:
+                        shutil.copyfileobj(inf, outf)
+            shutil.copy(combined, out)
+    return 0
 
 
 def _par_graph_size(mem_gb: int, threads: int) -> int:
@@ -63,9 +140,92 @@ def cmd_buildg(args) -> int:
     return 0
 
 
+def cmd_simplify(args) -> int:
+    """`fullsimplify` executable equivalent (reference CLI:
+    src/SimplifyGraph/src/Config.cpp:198-288)."""
+    from .simplify.driver import run_fullsimplify
+    from .utils.logging import set_level
+
+    if args.log:
+        set_level(args.log)
+    run_fullsimplify(
+        args.fs.split(",") if args.fs else [],
+        args.fp.split(",") if args.fp else [],
+        args.fpi.split(",") if args.fpi else [],
+        args.e.split(",") if args.e else [],
+        args.crd.split(",") if args.crd else [],
+        args.o,
+        param_files=[p for p in (args.p, args.p2, args.p3) if p] or None,
+        sim_path=args.simPth)
+    return 0
+
+
+def cmd_parsimplify(args) -> int:
+    """`parsimplify` executable equivalent (reference CLI:
+    src/SimplifyGraph/src/mainParSimplify.cpp:13-17: positional
+    edgeFile outFile minOvl threads)."""
+    from .native import parsimplify_run
+    parsimplify_run(args.edge_file, args.out_file, args.min_ovl)
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """`assemblyStats.py` equivalent.  With a mode, writes the reference's
+    <base>.stat.txt (+ .filtered.fasta under cutoffs, reference:
+    assemblyStats.py:27-35,202-470); without, prints a summary."""
+    from .utils.stats import (assembly_stats, denovo_stat_file, format_stats,
+                              mapped_stat_file)
+    if args.mode == "denovo":
+        path = denovo_stat_file(args.fasta, min_len=args.min_len)
+        print(path)
+    elif args.mode == "mapped":
+        if not args.ref:
+            print("stats mapped: -r reference fasta required",
+                  file=sys.stderr)
+            return 1
+        path = mapped_stat_file(args.fasta, args.ref, min_len=args.min_len,
+                                map_quality=args.q)
+        print(path)
+    else:
+        st = assembly_stats(args.fasta, min_len=args.min_len)
+        print(format_stats(st))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="disco-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    a = sub.add_parser("assemble", help="end-to-end assembly")
+    a.add_argument("-in1", help="forward paired read file")
+    a.add_argument("-in2", help="reverse paired read file")
+    a.add_argument("-inP", help="interleaved paired read file(s), comma-sep")
+    a.add_argument("-inS", help="single read file(s), comma-sep")
+    a.add_argument("-d", required=True, help="output directory")
+    a.add_argument("-o", required=True, help="output prefix")
+    a.add_argument("-p", help="parameter cfg (iteration 1)")
+    a.add_argument("-p2", help="parameter cfg (iteration 2)")
+    a.add_argument("-p3", help="parameter cfg (iteration 3)")
+    a.add_argument("-m", type=int, default=30,
+                   help="min overlap for graph build (if no cfg)")
+    a.add_argument("-obg", action="store_true",
+                   help="only build graph, skip simplification")
+    a.add_argument("-osg", action="store_true",
+                   help="only simplify (graph files must exist)")
+    a.add_argument("-resimp", action="store_true",
+                   help="nuke previous assembly dir and re-simplify")
+    a.add_argument("-n", type=int, default=0,
+                   help="devices for a distributed graph build (not yet "
+                        "ported)")
+    a.add_argument("-rma", action="store_true",
+                   help="dist-mem build (not yet ported)")
+    a.add_argument("-ecc", action="store_true",
+                   help="BBTools preprocessing before assembly (not yet "
+                        "ported)")
+    a.add_argument("--write-par-graph-size", type=int, default=1000)
+    a.add_argument("-backend", choices=["device", "native", "xla"],
+                   help="overlap-phase engine (see buildg -backend)")
+    a.set_defaults(fn=cmd_assemble)
 
     b = sub.add_parser("buildg", help="graph construction (buildG)")
     b.add_argument("-pe", help="paired-end file(s), comma-sep")
@@ -92,6 +252,44 @@ def main(argv=None) -> int:
     b.add_argument("-rma", action="store_true",
                    help="dist-mem build (not yet ported)")
     b.set_defaults(fn=cmd_buildg)
+
+    fsim = sub.add_parser("simplify",
+                          help="graph simplification (fullsimplify)")
+    fsim.add_argument("-fs", help="single read file(s), comma-sep")
+    fsim.add_argument("-fp", help="separated paired read file(s), comma-sep")
+    fsim.add_argument("-fpi", help="interleaved paired file(s), comma-sep")
+    fsim.add_argument("-e", help="edge file(s), comma-sep")
+    fsim.add_argument("-crd", help="contained-read file(s), comma-sep")
+    fsim.add_argument("-o", required=True, help="output prefix")
+    fsim.add_argument("-p", help="parameter cfg (iteration 1)")
+    fsim.add_argument("-p2", help="parameter cfg (iteration 2)")
+    fsim.add_argument("-p3", help="parameter cfg (iteration 3)")
+    fsim.add_argument("-simPth",
+                      help="dir with test/<thresh>.txt post-processing "
+                           "tables (parsimplify runs in-process)")
+    fsim.add_argument("-t", type=int, default=0, help="accepted, unused")
+    fsim.add_argument("-log", help="log level (ERROR..DEBUG4)")
+    fsim.set_defaults(fn=cmd_simplify)
+
+    ps = sub.add_parser("parsimplify",
+                        help="partial-graph simplification (parsimplify)")
+    ps.add_argument("edge_file")
+    ps.add_argument("out_file")
+    ps.add_argument("min_ovl", type=int)
+    ps.add_argument("threads", type=int, nargs="?", default=1)
+    ps.set_defaults(fn=cmd_parsimplify)
+
+    s = sub.add_parser("stats", help="assembly N50/size statistics "
+                                     "(assemblyStats.py equivalent)")
+    s.add_argument("mode", nargs="?", choices=["denovo", "mapped"],
+                   help="write <base>.stat.txt like the reference; "
+                        "omit for a quick summary to stdout")
+    s.add_argument("fasta")
+    s.add_argument("-r", "--ref", help="reference fasta (mapped mode)")
+    s.add_argument("-q", type=float, default=0.0,
+                   help="min mapping rate 1-(edit/mapped) (mapped mode)")
+    s.add_argument("-m", "--min-len", type=int, default=0)
+    s.set_defaults(fn=cmd_stats)
 
     args = ap.parse_args(argv)
     return args.fn(args)

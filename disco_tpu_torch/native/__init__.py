@@ -1,10 +1,13 @@
-"""ctypes bindings for the C++ host code on the buildG path.
+"""ctypes bindings for the C++ host code of buildG and fullsimplify.
 
-The sources are native/src/{readqc,overlap,replay}.cpp, byte-identical
-copies of the JAX package's, compiled into the port's own build directory
-(see disco_tpu_torch/kernels.py).  Only what the buildG slice calls is bound:
-read QC and packing, the record scanner, the native overlap relation (all
-three protocols), and the traversal replay.  Semantics are those of disco_tpu/native/__init__.py."""
+The sources are native/src/{readqc,overlap,replay,refsort,parsimplify,
+mcmf,backindex}.cpp, byte-identical copies of the JAX package's, compiled
+into the port's own build directory (see disco_tpu_torch/kernels.py).
+Bound are read QC and packing, the record scanner (whole file, lengths
+only, and in windows), the native overlap relation (all three protocols),
+the traversal replay, and simplify's host code: libstdc++'s std::sort
+permutation, parsimplify, the min-cost flow solver and the read-to-edge
+back index.  Semantics are those of disco_tpu/native/__init__.py."""
 import ctypes
 import os
 import threading
@@ -37,6 +40,11 @@ _SPECS = {
         "seq_scan_extract": ([_vp, ctypes.c_char_p, _i64, _p64, _i64], _i64),
         "seq_scan_fill": ([ctypes.c_char_p, _i64, ctypes.c_char_p, _i64,
                            _p64, _i64], _i64),
+        "seq_scan_offsets_close": ([_vp, _p64], None),
+        "seq_scan_record_pos": ([_vp, _p64], None),
+        "seq_scan_extract_window": ([_vp, _i64, _i64, ctypes.c_char_p, _i64,
+                                     _p64, _i64], _i64),
+        "seq_scan_close": ([_vp], None),
     }),
     "overlap": (("-O3", ("-fopenmp",)), {
         "overlap_relation_collect_mode": ([_pu32, _pu32, _p32, _i64, _i64,
@@ -57,6 +65,31 @@ _SPECS = {
         "edge_group_fill": ([_p32, _p32, _p32, _pi8, _pu8, _pu8, _i64,
                              _i64, _p16, _p32, _pi8, _p64], None),
     }),
+    "refsort": (("-O2", ()), {
+        "stdsort_by_key_u64": ([_pu64, _p64, _i64], None),
+        "stdsort_by_key_i64": ([_p64, _p64, _i64], None),
+        "stdsort_by_key_i64_desc": ([_p64, _p64, _i64], None),
+    }),
+    "parsimplify": (("-O2", ()), {
+        "parsimplify_run": ([ctypes.c_char_p, ctypes.c_char_p, _i64], _i64),
+    }),
+    "mcmf": (("-O3", ()), {
+        "mcmf_solve": ([_i64, _i64, _p64, _p64, _p64, _p64, _p64, _p64],
+                       _i64),
+    }),
+    "backindex": (("-O2", ()), {
+        "backindex_new": ([_i64], _vp),
+        "backindex_free": ([_vp], None),
+        "backindex_add_bulk": ([_vp, _p32, _pi8, _i64, _i64, _i64], None),
+        "backindex_remove_bulk": ([_vp, _p32, _pi8, _i64, _i64, _i64],
+                                  None),
+        "backindex_query": ([_vp, _i64, ctypes.c_int32, _p64, _p64], _i64),
+        "backindex_count": ([_vp, _i64], _i64),
+        "backindex_has": ([_vp, _i64], ctypes.c_int32),
+        "backindex_head_ptr": ([_vp], _p32),
+        "backindex_query_cap": ([_vp, _i64, ctypes.c_int32, _p64, _p64,
+                                 _i64], _i64),
+    }),
 }
 
 
@@ -74,7 +107,7 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Compile and load every host library of the slice."""
+    """Compile and load every host library of the port."""
     for name in _SPECS:
         _lib(name)
 
@@ -87,6 +120,37 @@ def _as_char_p(x):
     if isinstance(x, bytes):
         return x
     return x.ctypes.data_as(ctypes.c_char_p)
+
+
+# ---------------------------------------------------------------------------
+# libstdc++ std::sort permutation (see src/refsort.cpp)
+# ---------------------------------------------------------------------------
+def stdsort_permutation(keys, descending: bool = False) -> np.ndarray:
+    """Permutation produced by libstdc++ std::sort with a key-only `<`
+    comparator, including its exact (unstable) treatment of ties. perm[i] is
+    the original index of the element at sorted position i."""
+    keys = np.ascontiguousarray(keys)
+    n = len(keys)
+    out = np.empty(n, np.int64)
+    if n == 0:
+        return out
+    if n <= 16:
+        # libstdc++ introsort runs a plain insertion sort on ranges up to
+        # _S_threshold=16, which is stable, so the permutation is a stable
+        # argsort (and the common small lists skip the ctypes round trip)
+        if descending:
+            k2 = keys.astype(np.int64, copy=False)
+            return np.lexsort((np.arange(n), -k2))
+        return np.argsort(keys, kind="stable")
+    lib = _lib("refsort")
+    if keys.dtype == np.uint64 and not descending:
+        lib.stdsort_by_key_u64(_ptr(keys, _pu64), _ptr(out, _p64), n)
+        return out
+    keys = keys.astype(np.int64, copy=False)
+    fn = (lib.stdsort_by_key_i64_desc if descending
+          else lib.stdsort_by_key_i64)
+    fn(_ptr(keys, _p64), _ptr(out, _p64), n)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +281,70 @@ def seq_scan_path(path: str):
     return buf, offsets
 
 
+def seq_scan_lengths(path: str):
+    """Lengths-only streaming scan of an uncompressed FASTA/FASTQ file:
+    the (n+1,) sequence-length boundary offsets, no sequence bytes
+    materialized (simplify's DataSet loads read lengths only, reference:
+    src/SimplifyGraph/src/DataSet.cpp).  None if not scannable."""
+    lib = _lib("readqc")
+    n = ctypes.c_int64(0)
+    tot = ctypes.c_int64(0)
+    h = lib.seq_scan_open(os.fsencode(path), ctypes.byref(n),
+                          ctypes.byref(tot))
+    if not h:
+        return None
+    offsets = np.zeros(n.value + 1, np.int64)
+    lib.seq_scan_offsets_close(h, _ptr(offsets, _p64))
+    return offsets
+
+
+def iter_record_windows(path: str, window_bytes: int = 64 << 20):
+    """Windows (seq_blob uint8, (m+1,) offsets, rec_lo) of about
+    `window_bytes` of file each, covering every record of an uncompressed
+    FASTA/FASTQ file in order without holding the whole blob (the
+    reference's contig streamer reads record by record,
+    OverlapGraph.cpp:2148-2243).  Returns a generator, or None if the file
+    cannot be scanned this way (the caller falls back)."""
+    lib = _lib("readqc")
+    n = ctypes.c_int64(0)
+    tot = ctypes.c_int64(0)
+    h = lib.seq_scan_open(os.fsencode(path), ctypes.byref(n),
+                          ctypes.byref(tot))
+    if not h:
+        return None
+    n = n.value
+    rec_pos = np.empty(max(n, 1), np.int64)
+    lib.seq_scan_record_pos(h, _ptr(rec_pos, _p64))
+    fsize = os.path.getsize(path)
+
+    def gen():
+        try:
+            lo = 0
+            while lo < n:
+                hi = lo
+                start = rec_pos[lo]
+                # grow the window by file bytes (sequence <= file bytes)
+                while hi < n and (rec_pos[hi] - start) < window_bytes:
+                    hi += 1
+                file_hi = fsize if hi >= n else int(rec_pos[hi])
+                file_lo = int(rec_pos[lo])
+                cap = file_hi - file_lo
+                buf = np.empty(max(cap, 1), np.uint8)
+                offs = np.zeros(hi - lo + 1, np.int64)
+                w = lib.seq_scan_extract_window(
+                    h, file_lo, file_hi, _as_char_p(buf), cap,
+                    _ptr(offs, _p64), hi - lo)
+                if w < 0:
+                    raise RuntimeError(
+                        f"{path}: window extract overflow at records "
+                        f"[{lo},{hi})")
+                yield buf[:w], offs, lo
+                lo = hi
+        finally:
+            lib.seq_scan_close(h)
+    return gen()
+
+
 def seq_scan(raw):
     """Parse a FASTA/FASTQ byte buffer (bytes or uint8 ndarray) into
     (seq_blob, offsets): upper-cased concatenated record sequences
@@ -327,3 +455,93 @@ def overlap_relation_mode2_grouped(packed: np.ndarray,
         handle, n, _ptr(starts, _p64), _ptr(out_j, _p16),
         _ptr(out_r2, _p32), _ptr(out_eo, _pi8))
     return starts, out_j, out_r2, out_eo
+
+
+# ---------------------------------------------------------------------------
+# parsimplify, min-cost flow, read -> edge back index
+# (see src/{parsimplify,mcmf,backindex}.cpp)
+# ---------------------------------------------------------------------------
+def parsimplify_run(edge_file: str, out_file: str, min_ovl: int) -> None:
+    """Native parsimplify: edge_file -> out_file (bit-identical to the
+    Python oracle simplify.pargraph.parsimplify)."""
+    rc = _lib("parsimplify").parsimplify_run(
+        edge_file.encode(), out_file.encode(), min_ovl)
+    if rc != 0:
+        raise OSError(f"parsimplify_run failed on {edge_file}")
+
+
+def mcmf_solve(v_nodes: int, tail, head, lb, ub, cost) -> np.ndarray:
+    """Solve min-cost flow with per-arc lower bounds (ub<0 = infinite).
+    Returns the per-arc flow vector; raises on infeasibility."""
+    arrs = [np.ascontiguousarray(a, np.int64)
+            for a in (tail, head, lb, ub, cost)]
+    n_arcs = len(arrs[0])
+    out = np.empty(n_arcs, np.int64)
+    rc = _lib("mcmf").mcmf_solve(v_nodes, n_arcs,
+                                 *(_ptr(a, _p64) for a in arrs),
+                                 _ptr(out, _p64))
+    if rc != 0:
+        raise RuntimeError("infeasible flow problem")
+    return out
+
+
+class NativeBackIndex:
+    """ctypes wrapper over the backindex.cpp arena; see EdgeLocArena in
+    simplify/dataset.py for the public semantics."""
+    __slots__ = ("lib", "h", "head", "_qa", "_qi", "_qa_p", "_qi_p",
+                 "_query")
+
+    def __init__(self, n_reads: int):
+        self.lib = _lib("backindex")
+        self.h = self.lib.backindex_new(n_reads)
+        # zero-copy has-entries view (the C head vector is fixed-size)
+        self.head = np.ctypeslib.as_array(
+            self.lib.backindex_head_ptr(self.h), shape=(n_reads + 1,))
+        # reused query buffers (grown on demand) with their ctypes pointers
+        # made once: data_as on every call dominated the per-read query
+        self._qa = np.empty(64, np.int64)
+        self._qi = np.empty(64, np.int64)
+        self._qa_p = _ptr(self._qa, _p64)
+        self._qi_p = _ptr(self._qi, _p64)
+        self._query = self.lib.backindex_query_cap
+
+    def __del__(self):
+        if getattr(self, "h", None):
+            self.lib.backindex_free(self.h)
+            self.h = None
+
+    def add_bulk(self, rids: np.ndarray, ori_bits: np.ndarray, addr: int,
+                 idx0: int = 0):
+        rids = np.ascontiguousarray(rids, np.int32)
+        ori_bits = np.ascontiguousarray(ori_bits, np.int8)
+        self.lib.backindex_add_bulk(self.h, _ptr(rids, _p32),
+                                    _ptr(ori_bits, _pi8), len(rids), addr,
+                                    idx0)
+
+    def remove_bulk(self, rids: np.ndarray, ori_bits: np.ndarray, addr: int,
+                    idx0: int = 0):
+        rids = np.ascontiguousarray(rids, np.int32)
+        ori_bits = np.ascontiguousarray(ori_bits, np.int8)
+        self.lib.backindex_remove_bulk(self.h, _ptr(rids, _p32),
+                                       _ptr(ori_bits, _pi8), len(rids), addr,
+                                       idx0)
+
+    def query(self, rid: int, orient_bit: int):
+        """Single-call query into reused buffers; returns (addr_list,
+        idx_list) as Python lists, or (None, None) for no entries."""
+        w = self._query(self.h, rid, orient_bit, self._qa_p, self._qi_p,
+                        len(self._qa))
+        if w < 0:
+            n = -w
+            self._qa = np.empty(2 * n, np.int64)
+            self._qi = np.empty(2 * n, np.int64)
+            self._qa_p = _ptr(self._qa, _p64)
+            self._qi_p = _ptr(self._qi, _p64)
+            w = self._query(self.h, rid, orient_bit, self._qa_p,
+                            self._qi_p, len(self._qa))
+        if w == 0:
+            return None, None
+        return self._qa[:w].tolist(), self._qi[:w].tolist()
+
+    def has(self, rid: int) -> bool:
+        return bool(self.lib.backindex_has(self.h, rid))

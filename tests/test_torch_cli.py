@@ -1,0 +1,134 @@
+"""disco_tpu_torch's command line (`assemble`, `simplify`, `parsimplify`,
+`stats`) against disco_tpu's and the reference's goldens, byte for byte.
+
+`assemble` runs from the golden's directory because _ReadIDMap.txt records
+the reads' path as given.  Without a card the device backend is reached
+only through `run_buildg(..., device="cpu")` (test_torch_buildg.py);
+`assemble -backend device` must raise there, not fall back."""
+import pathlib
+import shutil
+
+import pytest
+import torch
+
+from conftest import GOLDEN
+from test_torch_native import private_native  # noqa: F401
+from test_torch_simplify import OUTPUTS, assert_same_tree
+
+from disco_tpu.cli import main as jmain
+from disco_tpu_torch.cli import main as tmain
+
+MINI = GOLDEN / "mini"
+THRESH = GOLDEN / "thresh146"
+CFG_ARGS = ["-p", str(THRESH / "cfg.cfg"), "-p2", str(THRESH / "cfg_2.cfg"),
+            "-p3", str(THRESH / "cfg_3.cfg")]
+GRAPH = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
+         "_CheckpointInfo.txt", "_0_startRead.txt")
+
+
+def _assemble(main, out: pathlib.Path, *extra):
+    return main(["assemble", "-inP", "reads.fasta", "-d", str(out),
+                 "-o", "mini", *CFG_ARGS, *extra])
+
+
+def test_assemble_native_mini(tmp_path, monkeypatch):
+    """Reads to scaffolds on mini with the native buildG: the port's tree
+    equals disco_tpu's file for file, its graph equals the reference's
+    buildG output and its assembly the reference's fullsimplify output."""
+    monkeypatch.chdir(MINI)
+    # disco_tpu's assemble exports -backend through the environment
+    monkeypatch.setenv("DISCO_TPU_BACKEND", "native")
+    assert _assemble(tmain, tmp_path / "port", "-backend", "native") == 0
+    assert _assemble(jmain, tmp_path / "jax", "-backend", "native") == 0
+    assert assert_same_tree(tmp_path / "port", tmp_path / "jax") > 20
+    port = tmp_path / "port"
+    for suffix in GRAPH:
+        assert ((port / "graph" / f"mini{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix
+    for name in OUTPUTS:
+        assert ((port / "assembly" / f"mini_{name}").read_bytes()
+                == (MINI / "simplify" / f"mini_{name}").read_bytes()), name
+    for kind in ("contigs", "scaffolds"):
+        combined = (port / f"mini_{kind}FinalCombined.fasta").read_bytes()
+        assert combined == (port / "assembly" /
+                            f"mini_{kind}Final_1.fasta").read_bytes()
+        assert combined.startswith(b">")
+
+
+def test_assemble_graph_then_simplify(tmp_path, monkeypatch):
+    """-obg (graph only) and then -osg (simplify only) write the tree of
+    one whole run."""
+    monkeypatch.chdir(MINI)
+    assert _assemble(tmain, tmp_path / "whole", "-backend", "native") == 0
+    assert _assemble(tmain, tmp_path / "split", "-backend", "native",
+                     "-obg") == 0
+    assert not (tmp_path / "split" / "assembly" / "mini_UsedReads_1.txt"
+                ).exists()
+    assert _assemble(tmain, tmp_path / "split", "-osg") == 0
+    assert_same_tree(tmp_path / "whole", tmp_path / "split")
+
+
+def test_assemble_device_without_card_raises(tmp_path, monkeypatch):
+    """-backend device takes the card; without one it raises before any
+    graph is written, and nothing falls back to the native backend."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the device backend runs")
+    monkeypatch.chdir(MINI)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _assemble(tmain, tmp_path / "out", "-backend", "device")
+    assert not list((tmp_path / "out").rglob("*_parGraph.txt"))
+    assert not list((tmp_path / "out").rglob("*.fasta"))
+
+
+@pytest.mark.parametrize("extra", [["-n", "2"], ["-rma"], ["-ecc"]],
+                         ids=["n", "rma", "ecc"])
+def test_assemble_unported_options_raise(extra, tmp_path):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tmain(["assemble", "-inP", "x.fasta", "-d", str(tmp_path), "-o",
+               "p", *extra])
+    assert not list(tmp_path.iterdir())
+
+
+def test_cli_parsimplify_mini(tmp_path):
+    out = tmp_path / "pse.txt"
+    assert tmain(["parsimplify", str(MINI / "mini_0_parGraph.txt"), str(out),
+                  "30", "1"]) == 0
+    assert out.read_bytes() == (
+        MINI / "simplify" / "mini_parsimple.txt").read_bytes()
+
+
+def test_cli_simplify_mini(tmp_path):
+    """`simplify` (fullsimplify's command line) on mini's graph, against
+    disco_tpu's `simplify` and the golden outputs."""
+    for name, main in (("port", tmain), ("jax", jmain)):
+        w = tmp_path / name
+        w.mkdir()
+        for f in ("mini_0_parGraph.txt", "mini_0_containedReads.txt",
+                  "reads.fasta"):
+            shutil.copy(MINI / f, w / f)
+        assert main(["simplify", "-fpi", str(w / "reads.fasta"),
+                     "-e", str(w / "mini_0_parGraph.txt"),
+                     "-crd", str(w / "mini_0_containedReads.txt"),
+                     "-o", str(w / "mini"), *CFG_ARGS, "-log", "WARNING"]) == 0
+    assert_same_tree(tmp_path / "port", tmp_path / "jax")
+    for name in OUTPUTS:
+        assert ((tmp_path / "port" / f"mini_{name}").read_bytes()
+                == (MINI / "simplify" / f"mini_{name}").read_bytes()), name
+
+
+def test_cli_stats(tmp_path, monkeypatch, capsys):
+    """`stats` with no mode prints the summary; `stats denovo` writes
+    <base>.stat.txt beside the input and prints its path."""
+    scaffolds = MINI / "simplify" / "mini_scaffoldsFinal_1.fasta"
+    printed = {}
+    for name, main in (("port", tmain), ("jax", jmain)):
+        d = tmp_path / name
+        d.mkdir()
+        shutil.copy(scaffolds, d / "scf.fasta")
+        monkeypatch.chdir(d)
+        assert main(["stats", "scf.fasta"]) == 0
+        assert main(["stats", "denovo", "scf.fasta", "-m", "500"]) == 0
+        printed[name] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"]
+    assert printed["port"].endswith("scf.stat.txt\n")
+    assert_same_tree(tmp_path / "port", tmp_path / "jax")

@@ -1,5 +1,6 @@
 """disco_tpu_torch never imports jax: every module of the package, and the
-`buildg` command line, run in a fresh interpreter without pulling it in."""
+command line's subcommands, run in a fresh interpreter without pulling it
+in (nor anything of disco_tpu)."""
 import pathlib
 import subprocess
 import sys
@@ -32,7 +33,11 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("overlap.fused_kernel", "overlap.pallas_kernel",
               "overlap.locality", "bench_verify", "tools.exp_fetch_variants",
-              "tools.exp_mxu_fetch", "tools.exp_locality"):
+              "tools.exp_mxu_fetch", "tools.exp_locality", "simplify",
+              "simplify.params", "simplify.core", "simplify.dataset",
+              "simplify.pargraph", "simplify.engine", "simplify.flow",
+              "simplify.scaffold", "simplify.contigs", "simplify.gfa",
+              "simplify.cytoscape", "simplify.driver", "utils.stats"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -58,6 +63,28 @@ def test_cli_help_without_jax():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "-backend" in res.stdout and "-pe" in res.stdout
+
+
+@pytest.mark.parametrize("cmd,opts", [
+    ("assemble", ("-inP", "-backend", "-p3", "--write-par-graph-size")),
+    ("simplify", ("-fpi", "-crd", "-simPth")),
+    ("parsimplify", ("edge_file", "min_ovl")),
+    ("stats", ("denovo", "--min-len"))])
+def test_subcommand_help_without_jax(cmd, opts):
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['disco_tpu_torch', '{cmd}', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('disco_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m in ('jax', 'disco_tpu')\n"
+            "             or m.startswith(('jax.', 'disco_tpu.')))\n"
+            "assert not bad, bad\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    for opt in opts:
+        assert opt in res.stdout
 
 
 def test_cli_buildg_runs(tmp_path):

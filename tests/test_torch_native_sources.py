@@ -1,5 +1,6 @@
 """disco_tpu_torch keeps its own copies of the C++ host sources it builds
-(native/src/{readqc,overlap,replay}.cpp): they stay byte-identical to
+(native/src/{readqc,overlap,replay,refsort,parsimplify,mcmf,backindex}.cpp,
+every .cpp of disco_tpu/native): they stay byte-identical to
 disco_tpu/native's, and neither the port nor chip_smoke.py reads, builds or
 loads a file under disco_tpu/."""
 import json
@@ -14,13 +15,21 @@ from disco_tpu_torch import native
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_PKG = ROOT / "disco_tpu"
-SOURCES = ("readqc", "overlap", "replay")
+SOURCES = ("readqc", "overlap", "replay", "refsort", "parsimplify",
+           "mcmf", "backindex")
 
 
 def _under_jax_package(path) -> bool:
     p = pathlib.Path(path)
     p = (p if p.is_absolute() else ROOT / p).resolve()
     return p == JAX_PKG or JAX_PKG in p.parents
+
+
+def test_sources_are_every_cpp_of_the_jax_package():
+    assert sorted(p.stem for p in (JAX_PKG / "native").glob("*.cpp")) == \
+        sorted(SOURCES)
+    assert sorted(p.stem for p in kernels.NATIVE_SRC.glob("*.cpp")) == \
+        sorted(SOURCES)
 
 
 @pytest.mark.parametrize("name", SOURCES)
