@@ -92,7 +92,27 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    each `clock` stage, the host's peak RSS during the run (sampled every
    10 ms, after the heap earlier phases freed is returned to the OS) and
    at its start, the contigs' and scaffolds' counts and N50 from the port's
-   `stats`, and the card's name and power limit.
+   `stats`, and the card's name and power limit;
+10. the distributed buildG (`python -m disco_tpu_torch buildg -n 4
+   [-rma]`, dist/builder.py), four shards on the one card:
+   __graft_entry__.py's three dryrun_multichip runs (replicated, dist-mem,
+   and a forced overflow, route_cap 8, re-run exactly through K1) at a
+   budget of 2^13, each with at least 3 chunks and its files equal to the
+   single-device buildG's; the golden `mini` through `buildg -n 4` and
+   `-n 4 -rma`, equal to the reference's outputs; then phase 3's set
+   through `buildg -n 4 -rma` and `buildg -n 4` (`-w 20000`), each with
+   the K1 and K2 counts set to 0 just before and read just after (K1 above
+   0, K2 0) and its files equal to phase 5's native files.  Prints each
+   run's wall (no profiler runs during the timed runs) and `clock`
+   stages, chunks and fallback chunks, the bytes a shard moves through the
+   collectives a superstep (`tools.bench_scaling.superstep_bytes`) and the
+   peak device memory; then three supersteps of each engine under
+   torch.profiler and cProfile (the device's busy time and idle share,
+   device operations and host functions by time), and K1 at the dist
+   path's shape (shard 0's check in the first superstep, captured) against
+   its plain version, back to back and held, on the whole (Q, H) grid and
+   on its live lanes alone (the pairs with an edge or a containment window
+   to compare, gathered into a dense launch).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -122,7 +142,9 @@ time (the union of its kernel and copy intervals), its idle share, and the
 device operations by time.
 
 Prints the kernels' JSON line (K1 and K2 also with `assemble_launches`,
-phase 9's counts), the card's name and power limit, and last
+phase 9's counts, and `dist_launches`, phase 10's; K1 with its `dist_*`
+times and bound at the dist shape, whole and live lanes only), the card's
+name and power limit, and last
 {"ok": true, "device": {...}}."""
 import argparse
 import concurrent.futures
@@ -349,6 +371,34 @@ def sector_floor(p, sectors, fetched_bytes, index_bytes, geo_bytes=12,
             "sector_floor_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
+def read_sectors(windows, words):
+    """The 32-B sectors of a (words, P) int32 column input, stored row after
+    row, that the pairs' windows read (`fused_kernel.read_words`; windows:
+    (o, n) tensor pairs, each window of a pair read): exact for any P, the
+    least any kernel reads of the input at the card's sector granularity."""
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    reads = None
+    for o, n in windows:
+        first, last = fk.read_words(o, n, words)
+        w = torch.arange(words, device=first.device)
+        r = (w >= first[:, None]) & (w <= last[:, None])
+        reads = r if reads is None else reads | r
+    lane, w = torch.nonzero(reads, as_tuple=True)
+    return int(torch.unique((w * len(reads) + lane) >> 3).numel())
+
+
+def dual_floor(geo, wp):
+    """K1's sector floor over its (wp, P) column inputs: a's sectors under
+    the edge and containment windows, b's under the edge window and the
+    containment window at offset 0, and 20 B of geometry and 2 B of output
+    a pair."""
+    e_o1, e_o2, e_n, c_o1, c_n = geo
+    sectors = (read_sectors(((e_o1, e_n), (c_o1, c_n)), wp)
+               + read_sectors(((e_o2, e_n), (0 * c_n, c_n)), wp))
+    return sector_floor(len(e_n), sectors, 0, 0, geo_bytes=20, out_bytes=2)
+
+
 def fetched_sectors(wp, rows):
     """The bytes of the distinct table rows a fetch kernel reads, each row's
     wp data words rounded up to whole 32-B sectors."""
@@ -477,7 +527,8 @@ def past_row_check(eng, errs, p=3001, seed=2):
 
 def dual_bounds(rows1, geo, wp):
     """K1's and K2's bounds on one chunk: K1 reads the words both windows
-    span in both column inputs; K2 reads read1's distinct rows instead."""
+    span in both column inputs; K2 reads read1's distinct rows instead
+    (None without rows1)."""
     e_o1, e_o2, e_n, c_o1, c_n = geo
     p = len(e_n)
     n = compared_words(e_n) + compared_words(c_n)
@@ -485,6 +536,8 @@ def dual_bounds(rows1, geo, wp):
     a_words = span_union(e_o1, e_n, c_o1, c_n).sum()
     k1 = window_bound(p, a_words + b_words, 0, 0, n, geo_bytes=20,
                       out_bytes=2)
+    if rows1 is None:
+        return k1, None
     k2 = window_bound(p, b_words, 4 * wp * distinct(rows1), 4, n,
                       geo_bytes=20, out_bytes=2)
     return k1, k2
@@ -1502,16 +1555,16 @@ def fetch_phase(batch, wls, want, odd):
 # ---------------------------------------------------------------------------
 # --profile: where one device relation spends its time
 # ---------------------------------------------------------------------------
-def profile_phase(store, table, top=8):
-    """One more `_device_relation` under cProfile (host) and torch.profiler
-    (card).  The device's busy time is the union of its kernel and copy
-    intervals, so an interval that overlaps another counts once."""
+def profiled(fn, top=8, tag="profile"):
+    """fn() under cProfile (host) and torch.profiler (card); prints the
+    wall, the device's busy time (the union of its kernel and copy
+    intervals, so an interval that overlaps another counts once), its idle
+    share, the device operations and the host functions by time."""
     import cProfile
     import pstats
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from disco_tpu_torch.overlap.relation import _device_relation
 
     host = cProfile.Profile()
     torch.cuda.synchronize()
@@ -1519,7 +1572,7 @@ def profile_phase(store, table, top=8):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         host.enable()
-        _device_relation(store, table, device=DEVICE)
+        fn()
         torch.cuda.synchronize()
         host.disable()
         wall = time.perf_counter() - t0
@@ -1530,25 +1583,31 @@ def profile_phase(store, table, top=8):
         spans.append((ev.time_range.start, ev.time_range.end))
         n, us = by_name.get(ev.name, (0, 0.0))
         by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
-    check(spans, "the profiled relation ran nothing on the card")
+    check(spans, f"{tag}: the profiled run ran nothing on the card")
     busy, reach = 0.0, float("-inf")
     for lo, hi in sorted(spans):
         if hi > reach:
             busy += hi - max(lo, reach)
             reach = hi
     busy /= 1e6
-    say(f"profile: relation wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"(union of {len(spans)} kernel and copy intervals), idle share "
+    say(f"{tag}: wall {wall:.3f} s, device busy {busy:.3f} s (union of "
+        f"{len(spans)} kernel and copy intervals), idle share "
         f"{1 - busy / wall:.4f}")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
-        say(f"profile: device {us / 1e3:.3f} ms in {n} x {name[:100]}")
+        say(f"{tag}: device {us / 1e3:.3f} ms in {n} x {name[:100]}")
     rows = sorted(((ct, nc, f"{func} ({pathlib.Path(fn).name}:{line})")
                    for (fn, line, func), (_, nc, _, ct, _)
                    in pstats.Stats(host).stats.items()
                    if "disco_tpu_torch" in fn or fn == "~"), reverse=True)
     for ct, nc, where in rows[:2 * top]:
-        say(f"profile: host {ct:.3f} s cumulative in {nc} x {where}")
+        say(f"{tag}: host {ct:.3f} s cumulative in {nc} x {where}")
+
+
+def profile_phase(store, table):
+    """One more `_device_relation` under `profiled`."""
+    from disco_tpu_torch.overlap.relation import _device_relation
+    profiled(lambda: _device_relation(store, table, device=DEVICE))
 
 
 def ptxas_report(source, names):
@@ -1762,6 +1821,319 @@ def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the distributed buildG, four shards on the one card
+# ---------------------------------------------------------------------------
+DIST_SHARDS = 4
+DIST_OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt",
+                "_0_startRead.txt")
+
+
+def dryrun_reads(path: pathlib.Path):
+    """__graft_entry__.py's dryrun_multichip reads: 600 of 36-56 bp from a
+    3 kb genome, half reverse-complemented, so that the runs have
+    containment rows and all four orientations."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    genome = "".join(rng.choice(list("ACGT"), 3000))
+    rc = dict(zip("ACGT", "TGCA"))
+    recs = []
+    for _ in range(600):
+        ln = int(rng.integers(36, 57))
+        s = int(rng.integers(0, len(genome) - ln))
+        seq = genome[s:s + ln]
+        if rng.random() < 0.5:
+            seq = "".join(rc[c] for c in reversed(seq))
+        recs.append(seq)
+    path.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs)))
+
+
+@contextlib.contextmanager
+def sharded_record(builder, rec):
+    """While open, every run_buildg_sharded call (the CLI's too) counts its
+    chunks into rec["stats"], and chunk_plan's (hit_cap, chunk, route_cap)
+    lands in rec["plan"]."""
+    real_run, real_plan = builder.run_buildg_sharded, builder.chunk_plan
+
+    def run(*a, **kw):
+        rec["stats"] = kw["stats"] = {}
+        return real_run(*a, **kw)
+
+    def plan(*a, **kw):
+        rec["plan"] = real_plan(*a, **kw)
+        return rec["plan"]
+
+    builder.run_buildg_sharded, builder.chunk_plan = run, plan
+    try:
+        yield rec
+    finally:
+        builder.run_buildg_sharded, builder.chunk_plan = real_run, real_plan
+
+
+def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
+    """Both engines' supersteps on the full set, four shards on the card,
+    as `buildg -n 4 [-rma]` makes them: the first chunk once, then chunks
+    1 .. n_profiled, each pulled to the host as `_relation` pulls it, under
+    `profiled`.  The first dist-mem superstep's K1 inputs (shard 0's, from
+    `_dual_check`) are kept: the kernel against its plain version,
+    exactly, and timed back to back and held, on the whole grid and on its
+    live lanes alone.  Returns (times, err, bound, shape)."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch.dist import builder
+    from disco_tpu_torch.dist.mesh import make_mesh
+    from disco_tpu_torch.dist.overlap_shard import (PAD_KEY,
+                                                    DistMemOverlapEngine,
+                                                    ShardedOverlapEngine,
+                                                    host)
+    from disco_tpu_torch.index.table import FingerprintTable
+    from disco_tpu_torch.io.readstore import ReadStore
+    from disco_tpu_torch.overlap import device as dv
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.overlap.relation import window_codes
+
+    store = ReadStore.from_files([str(fasta)], [], min_ovl)
+    table = FingerprintTable.build(store, min_ovl - 1)
+    qread, qj, qcode = window_codes(store, table.k)
+    hit_cap, chunk, route_cap = builder.chunk_plan(
+        table, len(qread), DIST_SHARDS, None, 1 << 25)
+    marked = np.zeros(store.n_reads + (-store.n_reads) % DIST_SHARDS,
+                      np.int32)
+    mesh = make_mesh(DIST_SHARDS)
+    seen = []
+    real = dv._dual_check
+
+    def capture(blk1, blk2, *geo):
+        if not seen:
+            seen.append((blk1.T.contiguous(), blk2.T.contiguous(), geo))
+        return real(blk1, blk2, *geo)
+
+    def chunks(step, first, last):
+        for c in range(first, last):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            pad = chunk - len(qread[sl])        # `_relation`'s tail padding
+            out = step(np.pad(qread[sl], (0, pad)),
+                       np.pad(qj[sl], (0, pad), constant_values=-1),
+                       np.pad(qcode[sl], (0, pad), constant_values=PAD_KEY),
+                       marked)
+            for g in out[:6]:
+                host(g)
+
+    n_chunks = -(-len(qread) // chunk)
+    profiled_chunks = (min(1, n_chunks - 1), min(1 + n_profiled, n_chunks))
+
+    for name, engine in (("dist-mem", DistMemOverlapEngine),
+                         ("replicated", ShardedOverlapEngine)):
+        eng = engine.build(store, table, mesh, hit_cap=hit_cap,
+                           route_cap=route_cap, prune_marked=True)
+        step = (eng.make_step(store, q_chunk=chunk)[0]
+                if engine is DistMemOverlapEngine else eng.make_step(store))
+        dv._dual_check = capture
+        try:
+            chunks(step, 0, 1)
+        finally:
+            dv._dual_check = real
+        profiled(lambda: chunks(step, *profiled_chunks),
+                 tag=f"dist: {name}: supersteps {profiled_chunks[0]} to "
+                     f"{profiled_chunks[1] - 1} profiled")
+        del step, eng
+    torch.cuda.synchronize()
+    a, b, geo = seen[0]
+    del seen
+    kern = lambda: fk.fused_compare_dual(a, b, *geo)           # noqa: E731
+    plain = lambda: fk.fused_compare_dual_plain(a, b, *geo)    # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"K1 at the dist shape disagrees with its plain version "
+                    f"on {int((got[0] != want[0]).sum())} edge and "
+                    f"{int((got[1] != want[1]).sum())} containment flags")
+    times = {"ms": cuda_ms(kern, 20), "held_ms": cuda_ms(kern, 20, hold=True),
+             "plain_ms": cuda_ms(plain, 3)}
+    bd = dual_bounds(None, geo, a.shape[0])[0]
+    live = int((geo[2] > 0).sum()), int((geo[4] > 0).sum())
+
+    # the same check on the live lanes alone: the pairs with an edge or a
+    # containment window to compare, gathered into one dense launch (the
+    # rest answer True for both and are masked by the engine)
+    sel = torch.nonzero((geo[2] > 0) | (geo[4] > 0)).squeeze(1)
+    a_l, b_l = a[:, sel].contiguous(), b[:, sel].contiguous()
+    geo_l = tuple(g[sel].contiguous() for g in geo)
+    kern_l = lambda: fk.fused_compare_dual(a_l, b_l, *geo_l)  # noqa: E731
+    plain_l = lambda: fk.fused_compare_dual_plain(          # noqa: E731
+        a_l, b_l, *geo_l)
+    got_l, want_l = kern_l(), plain_l()
+    torch.cuda.synchronize()
+    err_l = max_abs_err(got_l, want_l)
+    check(err_l == 0, "K1 on the live lanes disagrees with its plain version")
+    check(all(bool((gl == g[sel]).all()) for gl, g in zip(got_l, got)),
+          "K1 on the live lanes disagrees with the whole grid's launch")
+    times.update(live_ms=cuda_ms(kern_l, 20),
+                 live_held_ms=cuda_ms(kern_l, 20, hold=True),
+                 live_plain_ms=cuda_ms(plain_l, 3))
+    bd_l = dual_bounds(None, geo_l, a.shape[0])[0]
+    floor, floor_l = dual_floor(geo, a.shape[0]), dual_floor(geo_l,
+                                                             a.shape[0])
+    shape = {"P": a.shape[1], "Wp": a.shape[0], "hit_cap": hit_cap,
+             "chunk": chunk, "edge_windows": live[0],
+             "containment_windows": live[1], "live_P": int(sel.numel()),
+             "live_max_abs_err": err_l, "live_bytes": bd_l["bytes"],
+             "live_bound_ms": bd_l["bound_ms"],
+             "sector_floor_ms": floor["sector_floor_ms"],
+             "live_sector_floor_ms": floor_l["sector_floor_ms"]}
+    return times, err, bd, shape
+
+
+def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
+               n_reads: int, wp: int):
+    """Phase 10.  Returns K1's and K2's launches on the full set (both
+    runs) and K1's timing at the dist shape."""
+    import torch
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.buildg.pipeline import run_buildg
+    from disco_tpu_torch.dist import builder
+    from disco_tpu_torch.dist.overlap_shard import fetch_cap_for
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools.bench_scaling import superstep_bytes
+
+    n = DIST_SHARDS
+    # ---- dryrun_multichip's three runs against the single-device run ----
+    dry = tmp / "dryrun"
+    dry.mkdir()
+    reads = dry / "reads.fasta"
+    dryrun_reads(reads)
+    kw = dict(min_overlap=13, write_par_graph_size=1000)
+    run_buildg([str(reads)], [], str(dry / "REF"), backend="device",
+               device=DEVICE, **kw)
+    for name, extra in (("replicated", {}), ("dist-mem", {"dist_mem": True}),
+                        ("forced overflow", {"route_cap": 8})):
+        stats = {}
+        t0 = time.perf_counter()
+        builder.run_buildg_sharded([str(reads)], [], str(dry / name), n,
+                                   budget=1 << 13, stats=stats, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(stats["chunks"] >= 3, f"dryrun {name}: {stats}")
+        if name == "replicated":
+            check(stats["fallback_chunks"] == 0, f"dryrun {name}: {stats}")
+        if name == "forced overflow":
+            check(stats["fallback_chunks"] >= 1, f"dryrun {name}: {stats}")
+        for o in DIST_OUTPUTS:
+            check((dry / f"{name}{o}").read_bytes()
+                  == (dry / f"REF{o}").read_bytes(),
+                  f"dryrun {name}{o} differs from the single-device run")
+        say(f"dist: dryrun {name}, {n} shards on the card: {wall:.2f} s, "
+            f"{stats['chunks']} chunks, {stats['fallback_chunks']} fallback; "
+            "files byte-identical to the single-device buildG")
+
+    # ---- the golden mini through the command line -----------------------
+    gdir = ROOT / "tests" / "golden" / "mini"
+    for extra in ([], ["-rma"]):
+        flag = "".join(" " + x for x in extra)
+        tag = "mini_n4" + "".join(extra)
+        cwd = os.getcwd()
+        os.chdir(gdir)    # _ReadIDMap.txt records the input path as given
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["buildg", "-pe", "reads.fasta", "-f",
+                           str(tmp / tag), "-p", "buildg.cfg", "-n", str(n),
+                           *extra])
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"buildg -n {n}{flag} on mini exited {rc}")
+        for suffix in OUTPUTS:
+            check((tmp / f"{tag}{suffix}").read_bytes()
+                  == (gdir / f"mini{suffix}").read_bytes(),
+                  f"buildg -n {n}{flag}: golden mini{suffix} differs")
+        say(f"dist: golden mini: buildg -n {n}{flag}: {wall:.2f} s, "
+            "byte-identical to the reference outputs")
+
+    # ---- the full set: buildg -n 4 -rma, then buildg -n 4 ----------------
+    launches = {"K1": 0, "K2": 0}
+    for extra in (["-rma"], []):
+        flag = "".join(" " + x for x in extra)
+        prefix = tmp / ("dist" + "".join(extra))
+        rec = {}
+        walls.walls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.fused_compare_dual.launches = 0
+        fk.fused_compare_dual_fetch.launches = 0
+        argv = ["buildg", "-pe", str(fasta), "-f", str(prefix), "-p",
+                str(CFG_DIR / "cfg.cfg"), "-w", "20000", "-n", str(n), *extra]
+        t0 = time.perf_counter()
+        with sharded_record(builder, rec):
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = fk.fused_compare_dual.launches
+        k2 = fk.fused_compare_dual_fetch.launches
+        peak = torch.cuda.max_memory_allocated()
+        stages = list(walls.walls)
+        check(rc == 0, f"buildg -n {n}{flag} exited {rc}")
+        check(k1 > 0, f"buildg -n {n}{flag} never launched K1")
+        check(k2 == 0, f"buildg -n {n}{flag} launched K2")
+        launches["K1"] += k1
+        launches["K2"] += k2
+        for suffix in OUTPUTS:
+            check((tmp / f"{prefix.name}{suffix}").read_bytes()
+                  == (tmp / f"native{suffix}").read_bytes(),
+                  f"buildg -n {n}{flag}: {suffix} differs from the native "
+                  "buildG's")
+        hit_cap, chunk, route_cap = rec["plan"]
+        dist_mem = bool(extra)
+        fetch_cap = fetch_cap_for(chunk, n, hit_cap) if dist_mem else 0
+        nbytes, _ = superstep_bytes(n, chunk, route_cap, hit_cap, n_reads, wp,
+                                    dist_mem, fetch_cap)
+        stats = rec["stats"]
+        mode = "dist-mem (-rma)" if dist_mem else "replicated"
+        say(f"dist: buildg -n {n}{flag} ({mode}) on the full set: "
+            f"{wall:.2f} s: " + ", ".join(f"{st} {t:.2f} s"
+                                          for st, t in stages))
+        say(f"dist: {mode}: files byte-identical to the native buildG's; "
+            f"launches K1 {k1}, K2 {k2}; {stats['chunks']} chunks, "
+            f"{stats['fallback_chunks']} fallback; hit_cap {hit_cap}, chunk "
+            f"{chunk} windows, route_cap {route_cap}, fetch_cap {fetch_cap}; "
+            f"{nbytes} B a shard a superstep through the collectives "
+            f"(bench_scaling.superstep_bytes); peak device memory "
+            f"{peak / 2**20:.1f} MiB")
+
+    times, err, bd, shape = dist_supersteps(fasta, min_ovl)
+    say(f"dist: K1 at the dist shape (shard 0, first superstep of -rma: "
+        f"P = {shape['P']}, Wp = {shape['Wp']}, hit_cap {shape['hit_cap']}, "
+        f"{shape['edge_windows']} live edge and "
+        f"{shape['containment_windows']} live containment windows): "
+        f"{times['ms']:.4f} ms (held {times['held_ms']:.4f} ms), plain "
+        f"{times['plain_ms']:.4f} ms, == plain; {bd['bytes']} B, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+        f"{bd['bound_ms'] / times['held_ms']:.0%} of its bound held; "
+        f"sector floor {shape['sector_floor_ms']:.4f} ms")
+    say(f"dist: K1 on the live lanes alone (P = {shape['live_P']}): "
+        f"{times['live_ms']:.4f} ms (held {times['live_held_ms']:.4f} ms), "
+        f"plain {times['live_plain_ms']:.4f} ms, == plain and == the whole "
+        f"grid's launch on them; {shape['live_bytes']} B, bound "
+        f"{shape['live_bound_ms']:.4f} ms; "
+        f"{shape['live_bound_ms'] / times['live_held_ms']:.0%} of its bound "
+        f"held; sector floor {shape['live_sector_floor_ms']:.4f} ms")
+    say(f"dist: card {card_line()}")
+    return launches, {"dist_ms": times["ms"], "dist_held_ms": times["held_ms"],
+                      "dist_plain_ms": times["plain_ms"],
+                      "dist_max_abs_err": err, "dist_bytes": bd["bytes"],
+                      "dist_bound_ms": bd["bound_ms"], "dist_P": shape["P"],
+                      "dist_live_ms": times["live_ms"],
+                      "dist_live_held_ms": times["live_held_ms"],
+                      "dist_live_plain_ms": times["live_plain_ms"],
+                      "dist_live_max_abs_err": shape["live_max_abs_err"],
+                      "dist_live_bytes": shape["live_bytes"],
+                      "dist_live_bound_ms": shape["live_bound_ms"],
+                      "dist_live_P": shape["live_P"],
+                      "dist_sector_floor_ms": shape["sector_floor_ms"],
+                      "dist_live_sector_floor_ms":
+                          shape["live_sector_floor_ms"]}
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-len", type=int, default=4_600_000)
@@ -1770,6 +2142,7 @@ def main(argv=None) -> int:
                     help="profile one more device relation (host and card)")
     args = ap.parse_args(argv)
 
+    t_smoke = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA card: torch.cuda.is_available() is false")
@@ -1857,6 +2230,7 @@ def main(argv=None) -> int:
         store = ReadStore.from_files([str(fasta)], [], min_ovl)
         table = FingerprintTable.build(store, min_ovl - 1)
         n_win = int(store.lengths.sum()) - store.n_reads * table.k
+        n_reads, wp = store.n_reads, store.packed.shape[1]
         say(f"data: {args.genome_len} bp genome, {args.coverage}x, 250 bp: "
             f"{store.n_reads} reads, {n_win} windows, {len(table.keys)} "
             f"table entries (made in {t1 - t0:.2f} s, loaded in "
@@ -1954,6 +2328,11 @@ def main(argv=None) -> int:
         a_launches = assemble_phase(tmp, fasta, walls)
         say(f"assemble: phase {time.perf_counter() - t0:.2f} s")
 
+        # ---- 10. the distributed buildG ----------------------------------
+        t0 = time.perf_counter()
+        d_launches, d_k1 = dist_phase(tmp, fasta, min_ovl, walls, n_reads, wp)
+        say(f"dist: phase {time.perf_counter() - t0:.2f} s")
+
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": n, "max_abs_err": errs[k],
@@ -1992,16 +2371,19 @@ def main(argv=None) -> int:
     kernels = [
         dict(entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
                    launches["K1"], errs, med, bounds["K1"]),
-             assemble_launches=a_launches["K1"]),
+             assemble_launches=a_launches["K1"],
+             dist_launches=d_launches["K1"], **d_k1),
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
-             assemble_launches=a_launches["K2"]),
+             assemble_launches=a_launches["K2"],
+             dist_launches=d_launches["K2"]),
     ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs,
                v_med, v_bounds[k], v_floors)
          for k, name, replaces in SINGLE_KERNELS] + [
         entry(k, name, source, replaces, f_launches[k], f_errs, f_med,
               f_bounds[k], f_floors)
         for k, name, replaces, source in FETCH_KERNELS]
+    say(f"smoke: wall {time.perf_counter() - t_smoke:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

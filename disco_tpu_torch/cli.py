@@ -12,10 +12,10 @@ assemblyStats.py.
 Usage:
   python -m disco_tpu_torch assemble -inP reads.fasta -d out -o prefix \
       -p disco.cfg [-p2 ...] [-p3 ...] [-m 30] [-obg|-osg] [-resimp] \
-      [-backend device|native|xla]
+      [-backend device|native|xla] [-n N] [-rma]
   python -m disco_tpu_torch buildg -pe reads.fasta -f out/prefix \
       [-se single.fasta] [-p disco.cfg | -m-ovl 30] [-m 8] [-w N] \
-      [-backend device|native|xla]
+      [-backend device|native|xla] [-n N] [-rma]
   python -m disco_tpu_torch simplify -fpi reads.fasta -e edges -crd crd \
       -o prefix -p disco.cfg [-p2 ...] [-p3 ...]
   python -m disco_tpu_torch parsimplify edgeFile outFile minOvl [threads]
@@ -40,15 +40,37 @@ def _cfg_min_overlap(path: str, default: int = 30) -> int:
     return default
 
 
+def _mesh(n: int):
+    """n shards for the distributed build (runDisco-MPI's -n, reference:
+    runDisco-MPI.sh:214 `mpirun -np N`), round-robin over the visible CUDA
+    cards.  Without a card this raises: there is no fallback to the CPU."""
+    from .dist.mesh import make_mesh
+    return make_mesh(n)
+
+
+def _build_target(args):
+    """(mesh, backend) of buildG: -n N (N > 1) runs the distributed build
+    over a mesh of N shards (dist-mem with -rma).  -rma alone runs the
+    single-device buildG, as disco_tpu does, on the card: so -n and -rma
+    both raise without one, before anything is written."""
+    if args.n and args.n > 1:
+        return _mesh(args.n), args.backend
+    if args.rma:
+        from .overlap.relation import _default_device
+        _default_device()
+        return None, "device"
+    return None, args.backend
+
+
 def cmd_assemble(args) -> int:
     """reads -> graph -> contigs and scaffolds.  -backend selects buildG's
     overlap engine (default `default_backend()`: the device when a card is
-    present)."""
-    for flag, what in ((args.n and args.n > 1, "-n (distributed build)"),
-                       (args.rma, "-rma (dist-mem build)"),
-                       (args.ecc, "-ecc (BBTools preprocessing)")):
-        if flag:
-            raise NotImplementedError(f"assemble {what}: not yet ported")
+    present); -n N runs buildG over a mesh of N shards, dist-mem with
+    -rma (`_build_target`)."""
+    if args.ecc:
+        raise NotImplementedError(
+            "assemble -ecc (BBTools preprocessing): not yet ported")
+    mesh, backend = _build_target(args)
     from .buildg.pipeline import run_buildg
     from .simplify.driver import run_fullsimplify
 
@@ -75,11 +97,19 @@ def cmd_assemble(args) -> int:
 
     # buildG phase: interleaved + separated pairs are "paired" inputs,
     # singles are single (reference: runDisco.sh:195-257)
-    if not args.osg:
+    if not args.osg and mesh is not None:
+        # distributed graph construction over the mesh (buildG-MPI, or
+        # buildG-MPIRMA with -rma)
+        from .dist.builder import run_buildg_sharded
+        run_buildg_sharded(inter_files + pair_files, single_files,
+                           graph_prefix, mesh, min_overlap=min_ovl,
+                           write_par_graph_size=args.write_par_graph_size,
+                           dist_mem=args.rma)
+    elif not args.osg:
         run_buildg(inter_files + pair_files, single_files, graph_prefix,
                    min_overlap=min_ovl,
                    write_par_graph_size=args.write_par_graph_size,
-                   backend=args.backend)
+                   backend=backend)
 
     if not args.obg:
         edge_files = sorted(glob.glob(graph_prefix + "_*_parGraph.txt"))
@@ -117,13 +147,10 @@ def _par_graph_size(mem_gb: int, threads: int) -> int:
 def cmd_buildg(args) -> int:
     """-pe/-se comma lists, -f prefix, -p cfg with MinOverlap4BuildGraph,
     -m memory budget (sets the parGraph chunk size exactly like the
-    reference), -w explicit chunk override; -t enters the -m rule only."""
-    if args.n and args.n > 1:
-        raise NotImplementedError(
-            "buildg -n (distributed build): not yet ported")
-    if args.rma:
-        raise NotImplementedError("buildg -rma (dist-mem build): not yet "
-                                  "ported")
+    reference), -w explicit chunk override; -t enters the -m rule only.
+    -n N runs the overlap phase over a mesh of N shards, dist-mem with
+    -rma (`_build_target`)."""
+    mesh, backend = _build_target(args)
     from .buildg.pipeline import run_buildg
 
     paired = args.pe.split(",") if args.pe else []
@@ -134,9 +161,14 @@ def cmd_buildg(args) -> int:
     min_ovl = _cfg_min_overlap(args.p) if args.p else args.m_ovl
     wsize = args.w or (_par_graph_size(args.m, args.t or 1)
                        if args.m else 1000)
-    run_buildg(paired, single, args.f, min_overlap=min_ovl,
-               write_par_graph_size=wsize, max_mem_gb=args.m,
-               backend=args.backend)
+    if mesh is not None:
+        from .dist.builder import run_buildg_sharded
+        run_buildg_sharded(paired, single, args.f, mesh, min_overlap=min_ovl,
+                           write_par_graph_size=wsize, dist_mem=args.rma)
+    else:
+        run_buildg(paired, single, args.f, min_overlap=min_ovl,
+                   write_par_graph_size=wsize, max_mem_gb=args.m,
+                   backend=backend)
     return 0
 
 
@@ -215,10 +247,13 @@ def main(argv=None) -> int:
     a.add_argument("-resimp", action="store_true",
                    help="nuke previous assembly dir and re-simplify")
     a.add_argument("-n", type=int, default=0,
-                   help="devices for a distributed graph build (not yet "
-                        "ported)")
+                   help="shards for a distributed graph build (runDisco-MPI "
+                        "-n), round-robin over the CUDA cards; needs a card")
     a.add_argument("-rma", action="store_true",
-                   help="dist-mem build (not yet ported)")
+                   help="dist-mem build (buildG-MPIRMA): with -n, the "
+                        "packed read payload partitioned over the shards, "
+                        "O(N/n) a shard (default replicates it, buildG-MPI);"
+                        " alone, the single-device buildG on the card")
     a.add_argument("-ecc", action="store_true",
                    help="BBTools preprocessing before assembly (not yet "
                         "ported)")
@@ -243,14 +278,17 @@ def main(argv=None) -> int:
                    help="explicit par-graph chunk size (writeParGraphSize); "
                         "overrides -m (default 1000 if neither given)")
     b.add_argument("-n", type=int, default=0,
-                   help="devices for a distributed build (not yet ported)")
+                   help="shards for a distributed build (buildG-MPI), "
+                        "round-robin over the CUDA cards; needs a card")
     b.add_argument("-backend", choices=["device", "native", "xla"],
                    help="overlap-phase engine: device (torch pipeline with "
                         "the CUDA kernels; default when a card is present), "
                         "native (C++/OpenMP host kernel; default otherwise), "
                         "xla (exact host expansion, checked on the device)")
     b.add_argument("-rma", action="store_true",
-                   help="dist-mem build (not yet ported)")
+                   help="dist-mem build (buildG-MPIRMA): the packed read "
+                        "payload partitioned over the -n shards; alone, the "
+                        "single-device buildG on the card")
     b.set_defaults(fn=cmd_buildg)
 
     fsim = sub.add_parser("simplify",

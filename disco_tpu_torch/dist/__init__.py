@@ -1,0 +1,2 @@
+"""The distributed buildG over a mesh of shards (the counterpart of
+disco_tpu/dist/): dist.mesh, dist.overlap_shard and dist.builder."""

@@ -1,0 +1,279 @@
+"""Distributed graph construction: the BuildGraphMPI / BuildGraphMPIRMA
+equivalent (the counterpart of disco_tpu/dist/builder.py; reference:
+src/BuildGraphMPI/, src/BuildGraphMPIRMA/).
+
+The overlap relation is computed on a mesh of shards by the sharded
+superstep (query axis cut over the shards, fingerprint table sharded by
+key, all_to_all candidate routing) and assembled into the same relation
+order as the single-device path, so the sequential replay writes files
+byte-identical to a single-process reference run, whatever the shard
+count."""
+import os
+from typing import Optional, Sequence, Union
+
+import numpy as np
+
+from ..buildg import replay
+from ..buildg.pipeline import load_contained_reads, read_checkpoint_info
+from ..index.table import FingerprintTable
+from ..io.readstore import ReadStore
+from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
+                                window_codes)
+from ..overlap.verify import make_packed_all
+from ..utils.logging import clock
+from .mesh import Mesh, make_mesh
+from .overlap_shard import (PAD_KEY, DistMemOverlapEngine,
+                            ShardedOverlapEngine, host)
+
+
+def _default_route_cap(chunk: int, n_dev: int) -> int:
+    """Per-peer routing-slot capacity.  The worst case is chunk // n_dev
+    (every query of a shard's slice landing on one key owner), but shipping
+    it makes each all_to_all n_dev times larger than the real traffic.
+    With uniform key hashing the per-peer load is Binomial(chunk/n, 1/n):
+    4x the mean plus a floor covers any realistic skew, and a chunk that
+    still overflows is re-run exactly (_chunk_fallback), so the cap is a
+    performance knob, not a correctness bound."""
+    per_dev = max(chunk // n_dev, 1)
+    cap = min(per_dev, max(4 * per_dev // n_dev, 1024))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _chunk_fallback(store, table, qread, qj, qcode, s, e, *, device,
+                    packed_all=None):
+    """Exact recompute of one overflowed superstep chunk (hit, route or
+    fetch cap exceeded) by `relation._xla_rows`: every candidate of the
+    chunk's windows expanded on the host and checked through K1 on
+    `device`.  Emits the chunk's kept rows in the (window, table-slot)
+    order of the grid compaction, so the containment replay and the
+    relation sort see identical rows.  Skipping the marked prune here is
+    safe: pruned rows are exactly rows the replays skip.  The reference has
+    no such path (an overflowing rank aborts)."""
+    return _xla_rows(store, table, qread[s:e], qj[s:e], qcode[s:e],
+                     device=device, packed_all=packed_all)
+
+
+def chunk_plan(table: FingerprintTable, q: int, n_dev: int,
+               route_cap: Optional[int], budget: int):
+    """(hit_cap, chunk, route_cap) of a sharded relation over q windows.
+    hit_cap is the table's largest key bucket, so the hit grids are
+    lossless; the chunk keeps chunk * hit_cap at the budget and is a
+    multiple of the shard count."""
+    # largest bucket in the sorted table = max run of equal keys
+    _, counts = np.unique(table.keys, return_counts=True)
+    hit_cap = max(int(counts.max()) if len(counts) else 1, 1)
+    chunk = max(budget // hit_cap, n_dev)
+    chunk = min(chunk, -(-q // n_dev) * n_dev)
+    chunk = -(-chunk // n_dev) * n_dev
+    if route_cap is None:
+        route_cap = _default_route_cap(chunk, n_dev)
+    return hit_cap, chunk, route_cap
+
+
+def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
+              route_cap, budget, dist_mem, prune,
+              superread_init=None, stats=None):
+    """The chunked sharded relation; with `prune`, in-loop containment
+    marking.  Returns (relation, superread, cont_lines)."""
+    n_dev = mesh.size
+    qread, qj, qcode = window_codes(store, table.k)
+    q = len(qread)
+    hit_cap, chunk, route_cap = chunk_plan(table, q, n_dev, route_cap,
+                                           budget)
+    if dist_mem:
+        eng = DistMemOverlapEngine.build(store, table, mesh, hit_cap=hit_cap,
+                                         route_cap=route_cap,
+                                         prune_marked=prune)
+        step, _ = eng.make_step(store, q_chunk=chunk)
+    else:
+        eng = ShardedOverlapEngine.build(store, table, mesh, hit_cap=hit_cap,
+                                         route_cap=route_cap,
+                                         prune_marked=prune)
+        step = eng.make_step(store)
+
+    n = store.n_reads
+    superread = (superread_init.copy() if superread_init is not None
+                 else np.zeros(n + 1, np.int64))
+    cont_lines = []
+    pad_n = (-n) % n_dev
+
+    def marked_now():
+        return np.pad((superread[1:n + 1] != 0).astype(np.int32),
+                      (0, pad_n))
+
+    parts = {name: [] for name in _COLUMNS}
+    fallback = {}          # the fallback's packed rows, made at first use
+    stats = stats if stats is not None else {}
+    stats.setdefault("fallback_chunks", 0)
+    stats.setdefault("chunks", 0)
+
+    def collect(s, e, out):
+        if sum(int(x.sum()) for x in out[5]) != 0:
+            # a cap was exceeded in this chunk: recompute it exactly
+            stats["fallback_chunks"] += 1
+            if "packed_all" not in fallback:
+                fallback["packed_all"] = make_packed_all(
+                    store.packed, store.packed_rc, mesh.devices[0])
+            rows = _chunk_fallback(store, table, qread, qj, qcode, s, e,
+                                   device=mesh.devices[0],
+                                   packed_all=fallback["packed_all"])
+        else:
+            m = e - s
+            r2, orient, typ, edge_ok, cont_ok = (host(g)[:m]
+                                                 for g in out[:5])
+            qi, hi = np.nonzero(edge_ok | cont_ok)
+            rows = {"r1": qread[s:e][qi], "j": qj[s:e][qi],
+                    "r2": r2[qi, hi], "orient": orient[qi, hi],
+                    "typ": typ[qi, hi], "edge_ok": edge_ok[qi, hi],
+                    "cont_ok": cont_ok[qi, hi]}
+        for name, dtype in _COLUMNS.items():
+            parts[name].append(rows[name].astype(dtype, copy=False))
+        if prune:
+            # advance the order-exact containment replay over this chunk's
+            # cont rows (rows arrive in relation order)
+            cc = parts["cont_ok"][-1]
+            replay.containment_step(
+                superread, cont_lines, store, table.k, parts["r1"][-1][cc],
+                parts["j"][-1][cc], parts["r2"][-1][cc],
+                parts["orient"][-1][cc])
+
+    # 1-deep pipeline: chunk i+1 is enqueued on the devices before chunk
+    # i's results are pulled, so the host compaction overlaps the devices
+    pending = None
+    for s in range(0, q, chunk):
+        e = min(s + chunk, q)
+        pad = chunk - (e - s)
+        out = step(np.pad(qread[s:e], (0, pad)),
+                   np.pad(qj[s:e], (0, pad), constant_values=-1),
+                   np.pad(qcode[s:e], (0, pad), constant_values=PAD_KEY),
+                   marked_now())
+        stats["chunks"] += 1
+        if pending is not None:
+            collect(*pending)
+        pending = (s, e, out)
+    if pending is not None:
+        collect(*pending)
+
+    cols = {name: (np.concatenate(parts[name]).astype(dtype, copy=False)
+                   if parts[name] else np.zeros(0, dtype))
+            for name, dtype in _COLUMNS.items()}
+    order = np.lexsort((cols["typ"], store.file_index[cols["r2"]],
+                        cols["j"], cols["r1"]))
+    rel = OverlapRelation(**{name: c[order] for name, c in cols.items()},
+                          k=table.k, stats=dict(stats))
+    return rel, superread, cont_lines
+
+
+def sharded_relation(store: ReadStore, table: FingerprintTable, mesh: Mesh,
+                     route_cap: Optional[int] = None,
+                     budget: int = 1 << 25,
+                     dist_mem: bool = False,
+                     stats: Optional[dict] = None) -> OverlapRelation:
+    """The verified overlap relation on the mesh.
+
+    Queries run in chunks of a fixed size a superstep, so device memory
+    stays bounded (grids of about `budget` words a mesh, whatever the data
+    size); every chunk reuses one step (the reference's analog is its
+    memory-bounded parGraph chunking, src/BuildGraph/src/
+    OverlapGraph.cpp:67-81).  dist_mem=True partitions the packed read
+    payload over the shards (DistMemOverlapEngine, the buildG-MPIRMA
+    equivalent); False replicates it (buildG-MPI).  `stats` counts chunks
+    and fallback_chunks."""
+    rel, _, _ = _relation(store, table, mesh, route_cap=route_cap,
+                          budget=budget, dist_mem=dist_mem, prune=False,
+                          stats=stats)
+    return rel
+
+
+def sharded_relation_pruned(store: ReadStore, table: FingerprintTable,
+                            mesh: Mesh,
+                            route_cap: Optional[int] = None,
+                            budget: int = 1 << 25,
+                            dist_mem: bool = False,
+                            superread_init: Optional[np.ndarray] = None,
+                            stats: Optional[dict] = None):
+    """The chunked sharded relation with in-loop containment marking: after
+    each superstep the host advances the order-exact containment replay and
+    feeds the contained-read mask into later supersteps, whose gathered
+    union prunes candidates touching contained reads before verification
+    (and, in dist-mem mode, before the payload fetch): the synchronous
+    equivalent of Disco's superReadID gossip work pruning (reference:
+    src/BuildGraphMPI/src/OverlapGraph.cpp:537-633,
+    src/BuildGraph/src/OverlapGraph.cpp:435-436).
+
+    The marks lag by the dispatch pipeline (one chunk stays pending), which
+    is safe: a late mark only means less pruning, and pruned rows are rows
+    the replays skip.  Returns (relation, superread, cont_lines); the
+    relation omits pruned rows, so it is not row-comparable to the
+    unpruned one, but every file derived from it is byte-identical."""
+    return _relation(store, table, mesh, route_cap=route_cap,
+                     budget=budget, dist_mem=dist_mem, prune=True,
+                     superread_init=superread_init, stats=stats)
+
+
+def run_buildg_sharded(paired_files: Sequence[str],
+                       single_files: Sequence[str], prefix: str,
+                       mesh: Union[Mesh, int], min_overlap: int = 30,
+                       write_par_graph_size: int = 1000,
+                       dist_mem: bool = False,
+                       budget: int = 1 << 25,
+                       route_cap: Optional[int] = None,
+                       stats: Optional[dict] = None, device=None):
+    """Distributed buildG: the outputs of buildg.pipeline.run_buildg, with
+    the overlap phase run over the mesh.  `mesh` is a Mesh or a shard
+    count; a count is laid out by `make_mesh(n, device)`: over the CUDA
+    cards (raising without one) unless the caller names a device ("cpu" in
+    the tests).  dist_mem selects the partitioned-payload engine
+    (buildG-MPIRMA, the CLI's -rma).  Returns (store, relation, superread),
+    or Nones when the checkpoint says the graph is complete."""
+    if not isinstance(mesh, Mesh):
+        mesh = make_mesh(mesh, device)
+    ccr_done, gc_done = read_checkpoint_info(prefix)
+    if gc_done:
+        return None, None, None
+    with clock("readDataset"):
+        store = ReadStore.from_files(paired_files, single_files, min_overlap,
+                                     id_map_path=prefix + "_ReadIDMap.txt")
+    with clock("insertDataset"):
+        table = FingerprintTable.build(store, min_overlap - 1)
+
+    cont_path = prefix + "_0_containedReads.txt"
+    superread_init = None
+    if ccr_done and os.path.exists(cont_path):
+        # resume: seed the in-loop pruning mask with the completed
+        # contained-read phase (the reference rebroadcasts the bitmap on
+        # restart, src/BuildGraphMPI/src/OverlapGraph.cpp:448-509)
+        superread_init = load_contained_reads(cont_path, store)
+    with clock("overlapRelation"):
+        rel, superread, cont_lines = sharded_relation_pruned(
+            store, table, mesh, dist_mem=dist_mem, budget=budget,
+            route_cap=route_cap, superread_init=superread_init, stats=stats)
+    if superread_init is None:
+        with open(cont_path, "w") as f:
+            for ln in cont_lines:
+                f.write(ln + "\n")
+        with open(prefix + "_CheckpointInfo.txt", "w") as f:
+            f.write("CCR=Complete\n")
+
+    # incremental parGraph restart, run_buildg's protocol
+    # (reference: OverlapGraph.cpp:123-211)
+    par_path = prefix + "_0_parGraph.txt"
+    sr_path = prefix + "_0_startRead.txt"
+    start_read = 1
+    premarked = None
+    mode = "wb"
+    if os.path.exists(par_path) and os.path.getsize(par_path) > 0:
+        premarked = replay.load_partial_marks(par_path, store)
+        start_read = replay.read_start_read(sr_path)
+        mode = "ab"
+    with clock("buildOverlapGraphFromHashTable"):
+        par_blob, start_blob, _ = replay.build_graph_replay_native(
+            rel, store, superread, write_par_graph_size,
+            start_read=start_read, premarked=premarked)
+    with open(par_path, mode) as f:
+        f.write(par_blob)
+    with open(sr_path, "wb") as f:
+        f.write(start_blob)
+    with open(prefix + "_CheckpointInfo.txt", "a") as f:
+        f.write("GC=Complete\n")
+    return store, rel, superread

@@ -1,0 +1,407 @@
+"""The sharded overlap superstep over a mesh of shards (the counterpart of
+disco_tpu/dist/overlap_shard.py).
+
+It replaces the reference's two distribution modes:
+
+- BuildGraphMPI (replicated index, partitioned reads, reference:
+  src/BuildGraphMPI/src/OverlapGraph.cpp:294-295): the query axis is cut
+  over the shards, the reads are replicated.
+- BuildGraphMPIRMA (partitioned hash data and one-sided MPI_Get with
+  software caches, reference: src/BuildGraphMPIRMA/src/HashTable.cpp:
+  92-119, 648-708): the fingerprint table is sharded by key (owner = the
+  unsigned key mod n), and each superstep routes query codes to their
+  owner with one `all_to_all`; the answers come back the same way.
+- The reference's asynchronous marked-bitmap gossip
+  (BuildGraphMPI/src/OverlapGraph.cpp:204-290) becomes an `all_gather` a
+  superstep.
+
+disco_tpu runs the superstep under `jax.shard_map` in one process; here
+the mesh (dist/mesh.py) is a list of devices, each piece between two
+collectives is a function of one shard's tensors, and the collectives are
+functions over the list of shards' tensors.  Everything has a fixed
+shape: queries are binned into per-peer blocks of `route_cap` slots
+(overflow is counted, and dist.builder re-runs such a chunk exactly), hits
+are capped at `hit_cap` a query.  Each shard's verification is K1 (the
+`fused_compare_dual` wrapper: the CUDA kernel on a card, its plain version
+on the CPU).
+
+Keys are uint64 on the host and int64 with the sign bit flipped on the
+devices (`overlap.device.flip_keys`): torch has no uint64 `%` or
+`searchsorted`.  So the table is sharded on the host in numpy, and each
+query's owner is the host's uint64 code mod n."""
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..index.table import FingerprintTable
+from ..io.readstore import ReadStore
+from ..overlap.device import (_SIGN64, candidate_checks,
+                              candidate_checks_rows, flip_keys)
+from ..overlap.verify import as_words, make_packed_all
+from .mesh import Mesh, all_gather, all_to_all
+
+PAD_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def key_owner(keys: np.ndarray, n_shards: int) -> np.ndarray:
+    """The shard that owns each uint64 key (or query code): key mod n, in
+    unsigned arithmetic, as int32."""
+    return (np.asarray(keys, np.uint64) % np.uint64(n_shards)).astype(
+        np.int32)
+
+
+def _bin_by_owner(owner, n_bins, cap):
+    """Scatter indices [0, Q) into an (n_bins, cap) slot matrix by owner id.
+    Entries with owner >= n_bins are skipped (callers use owner = n_bins as
+    a "route nowhere" sentinel).  Returns (slots int32, -1 padding;
+    overflow, the real entries that did not fit their bin)."""
+    q = owner.shape[0]
+    dev = owner.device
+    owner = owner.to(torch.int32).clamp_max(n_bins)
+    sowner, order = torch.sort(owner, stable=True)
+    start = torch.searchsorted(
+        sowner, torch.arange(n_bins, dtype=torch.int32, device=dev))
+    in_range = sowner < n_bins
+    rank = torch.arange(q, device=dev) - start[sowner.clamp_max(n_bins - 1)]
+    valid = (rank < cap) & in_range
+    # entries that do not fit land in one extra slot, cut off below
+    # (XLA's mode="drop")
+    idx = torch.where(valid, sowner.to(torch.int64) * cap + rank,
+                      n_bins * cap)
+    slots = torch.full((n_bins * cap + 1,), -1, dtype=torch.int32,
+                       device=dev)
+    slots.scatter_(0, idx, order.to(torch.int32))
+    overflow = in_range.sum() - valid.sum()
+    return slots[:-1].view(n_bins, cap), overflow
+
+
+def _scatter_rows(slots, n_rows, vals):
+    """vals (n * cap, ...) back to the rows that `slots` routed them from;
+    unused slots go to one extra row, cut off (XLA's mode="drop")."""
+    flat = slots.reshape(-1).to(torch.int64)
+    src = torch.where(flat >= 0, flat, n_rows)
+    out = vals.new_zeros((n_rows + 1, *vals.shape[1:]))
+    out[src] = vals
+    return out[:n_rows]
+
+
+def host(xs):
+    """The shards' tensors concatenated on dim 0, as one numpy array."""
+    return torch.cat([x.cpu() for x in xs]).numpy()
+
+
+def gather(out):
+    """A step's per-shard outputs as disco_tpu's global arrays, on the
+    host: the (Q, H) grids r2, orient, typ, edge_ok, cont_ok, the
+    overflows (n_shards,) and the marked unions (n_shards, N)."""
+    return tuple(host(x) for x in out)
+
+
+@dataclass
+class ShardedOverlapEngine:
+    """Device-sharded candidate lookup and verification.
+
+    The host shards the sorted fingerprint table by key owner (key mod
+    n_shards) and pads the shards to equal length; the superstep does bin
+    -> all_to_all -> local searchsorted -> all_to_all -> verify."""
+    mesh: Mesh
+    n_words: int
+    k: int
+    hit_cap: int
+    route_cap: int
+    keys: np.ndarray    # (n_shards, M_pad) uint64, each row sorted
+    read: np.ndarray    # (n_shards, M_pad) int32
+    orient: np.ndarray  # (n_shards, M_pad) int32
+    typ: np.ndarray     # (n_shards, M_pad) int32
+    sizes: np.ndarray   # (n_shards,) int32: real (unpadded) entry counts
+    # prune candidates touching marked (contained) reads with the gathered
+    # mask: Disco's superReadID == 0 work pruning (reference:
+    # src/BuildGraph/src/OverlapGraph.cpp:435-436); safe with stale marks
+    # (pruning lags, never wrong), see dist.builder
+    prune_marked: bool = False
+
+    @classmethod
+    def build(cls, store: ReadStore, table: FingerprintTable, mesh: Mesh,
+              hit_cap: int = 8, route_cap: int = 4096,
+              prune_marked: bool = False) -> "ShardedOverlapEngine":
+        n_shards = mesh.size
+        owner = key_owner(table.keys, n_shards)
+        m_pad = max(int(np.bincount(owner, minlength=n_shards).max()), 1)
+        keys = np.full((n_shards, m_pad), PAD_KEY)
+        read = np.zeros((n_shards, m_pad), np.int32)
+        orient = np.zeros((n_shards, m_pad), np.int32)
+        typ = np.zeros((n_shards, m_pad), np.int32)
+        sizes = np.zeros(n_shards, np.int32)
+        for s in range(n_shards):
+            sel = owner == s
+            m = int(sel.sum())
+            keys[s, :m] = table.keys[sel]   # globally sorted => row sorted
+            read[s, :m] = table.read[sel]
+            orient[s, :m] = table.orient[sel]
+            typ[s, :m] = table.typ[sel]
+            sizes[s] = m
+        return cls(mesh=mesh, n_words=store.n_words, k=table.k,
+                   hit_cap=hit_cap, route_cap=route_cap, keys=keys,
+                   read=read, orient=orient, typ=typ, sizes=sizes,
+                   prune_marked=prune_marked)
+
+    # ------------------------------------------------------------------
+    def _table_shards(self):
+        """Each shard's (keys flipped int64, read, orient, typ, size) on its
+        device."""
+        def dev(x, d):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+        return [(dev(flip_keys(self.keys[s]), d), dev(self.read[s], d),
+                 dev(self.orient[s], d), dev(self.typ[s], d),
+                 int(self.sizes[s]))
+                for s, d in enumerate(self.mesh.devices)]
+
+    def _inputs(self, qread, qj, qcode, marked):
+        """Host chunk arrays -> per-shard tensors: qread, qj (int32), the
+        flipped codes (int64) and owners (int32, from the uint64 codes),
+        and the marked blocks."""
+        m = self.mesh
+        return (m.split(np.ascontiguousarray(qread, np.int32)),
+                m.split(np.ascontiguousarray(qj, np.int32)),
+                m.split(flip_keys(qcode)),
+                m.split(key_owner(qcode, m.size)),
+                m.split(np.ascontiguousarray(marked, np.int32)))
+
+    def _route(self, qj, qcode, qowner):
+        """Per shard: bin the queries by their code's owner; pad windows
+        (qj < 0, the chunk-tail filler) route nowhere, or they would all
+        share the pad code's owner and flood one peer's slots."""
+        n = self.mesh.size
+        owner = torch.where(qj < 0, n, qowner)
+        slots, overflow = _bin_by_owner(owner, n, self.route_cap)
+        slot_valid = slots >= 0
+        codes_out = torch.where(
+            slot_valid, qcode[slots.clamp_min(0).to(torch.int64)], _SIGN64)
+        return slots, overflow, codes_out, slot_valid
+
+    def _lookup(self, codes_in, valid_in, shard):
+        """Per shard: the local table lookup, clamped to the shard's real
+        entry count: the pad entries share the key 0xFF..FF (the int64
+        maximum once flipped), which a genuine poly-T window can hash to,
+        so an unclamped hi would sweep the pad run into its bucket."""
+        lkeys, lread, lorient, ltyp, lsize = shard
+        flat = codes_in.reshape(-1)
+        lo = torch.searchsorted(lkeys, flat).clamp_max(lsize)
+        hi = torch.searchsorted(lkeys, flat, right=True).clamp_max(lsize)
+        tpos = lo[:, None] + torch.arange(self.hit_cap, device=lo.device)
+        hit_valid = (tpos < hi[:, None]) & valid_in.reshape(-1)[:, None]
+        overflow = ((hi - lo) > self.hit_cap).sum()
+        tpos = tpos.clamp(0, lkeys.shape[0] - 1)
+
+        def take(col):
+            return torch.where(hit_valid, col[tpos], 0).to(torch.int32)
+
+        return take(lread), take(lorient), take(ltyp), hit_valid, overflow
+
+    def _candidates(self, qread, qj, qcode, qowner, marked, shards):
+        """Steps 1-5 of the superstep, over all shards: the marked union,
+        the route out, the lookup, the answers back, and their scatter to
+        the query rows, pruned by the union.  Returns per shard (r2, orient,
+        typ, valid, overflow) and the unions."""
+        mesh = self.mesh
+        # 1. union of the marked bitmaps (replaces the async gossip)
+        unions = all_gather(mesh, marked)
+        # 2. route query codes to their owner shards
+        routed = [self._route(j, c, o) for j, c, o in zip(qj, qcode, qowner)]
+        codes_in = all_to_all(mesh, [r[2] for r in routed])
+        valid_in = all_to_all(mesh, [r[3] for r in routed])
+        # 3. local table lookup
+        hits = [self._lookup(c, v, sh)
+                for c, v, sh in zip(codes_in, valid_in, shards)]
+        # 4. answers ride back to the querying shard
+        back = [all_to_all(mesh, [h[i] for h in hits]) for i in range(4)]
+        out = []
+        for d in range(mesh.size):
+            slots, overflow = routed[d][0], routed[d][1] + hits[d][4]
+            # 5. scatter answers back to the query rows (the slot matrix is
+            #    the routing permutation)
+            q_local = qread[d].shape[0]
+            r2, orient, typ, valid = (_scatter_rows(slots, q_local, b[d])
+                                      for b in back)
+            if self.prune_marked:
+                u = unions[d]
+                valid &= (u[qread[d].to(torch.int64)] == 0)[:, None]
+                valid &= u[r2.to(torch.int64)] == 0
+            out.append((r2, orient, typ, valid, overflow))
+        return out, unions
+
+    def _superstep(self, packed_all, lengths, qread, qj, qcode, qowner,
+                   marked, shards):
+        """The replicated-payload superstep over all shards (per-shard
+        inputs as lists).  Per-shard outputs: hit grids (Qs, H), overflow
+        (1,), marked union (1, N)."""
+        cands, unions = self._candidates(qread, qj, qcode, qowner, marked,
+                                         shards)
+        h = self.hit_cap
+        outs = []
+        for d, (r2, orient, typ, valid, overflow) in enumerate(cands):
+            # 6. verify locally (shared geometry, reference:
+            #    src/BuildGraph/src/OverlapGraph.cpp:517-595)
+            edge_ok, cont_ok = candidate_checks(
+                packed_all[d], lengths[d], qread[d].repeat_interleave(h),
+                qj[d].repeat_interleave(h), r2.reshape(-1),
+                orient.reshape(-1), valid.reshape(-1), k=self.k)
+            outs.append((r2, orient, typ, edge_ok.view_as(r2),
+                         cont_ok.view_as(r2), overflow[None],
+                         unions[d][None, :]))
+        return tuple(list(x) for x in zip(*outs))
+
+    def make_step(self, store: ReadStore):
+        """Returns step(qread, qj, qcode, marked) over host arrays (qcode
+        uint64; marked padded to a multiple of the shard count): the
+        per-shard outputs (r2, orient, typ, edge_ok, cont_ok, overflow,
+        marked union), each a list over the shards (`gather` makes them
+        disco_tpu's global arrays).  The packed rows and lengths are held
+        once per distinct device, the table shards by their shards."""
+        shards = self._table_shards()
+        packed_all = self.mesh.replicate(
+            make_packed_all(store.packed, store.packed_rc))
+        lengths = self.mesh.replicate(
+            np.ascontiguousarray(store.lengths, np.int32))
+
+        def step(qread, qj, qcode, marked):
+            return self._superstep(packed_all, lengths,
+                                   *self._inputs(qread, qj, qcode, marked),
+                                   shards)
+        return step
+
+
+def fetch_cap_for(q_chunk: int, n_shards: int, hit_cap: int) -> int:
+    """The default fetch-slot capacity a peer pair: the ids of a shard's
+    slice spread about uniformly under round-robin ownership; 2x headroom,
+    rounded up to 8."""
+    ids = (q_chunk // n_shards) * (1 + hit_cap)
+    return -(-(2 * ids) // (8 * n_shards)) * 8
+
+
+# ---------------------------------------------------------------------------
+# Dist-mem mode: read payload partitioned across the mesh
+# ---------------------------------------------------------------------------
+@dataclass
+class DistMemOverlapEngine(ShardedOverlapEngine):
+    """The BuildGraphMPIRMA equivalent with a partitioned read store.
+
+    Disco's RMA mode partitions the hash DATA table, which holds the packed
+    read sequences, across ranks and fetches remote reads on demand with
+    MPI_Get and software caches (reference:
+    src/BuildGraphMPIRMA/src/HashTable.cpp:92-119,422-435,648-708).  Here
+    the packed payload (forward and rc rows) is sharded round-robin by read
+    id (owner = read % n_shards; round-robin because a superstep's query
+    slice covers a contiguous read range, which blocked ownership would send
+    to one owner), and each superstep fetches the rows it needs with one
+    all_to_all pair.
+
+    Held per shard: its table shard and its payload block; per distinct
+    device: the read lengths.  Device memory is O(N/n) payload a shard plus
+    O(chunk * hit_cap) superstep state."""
+
+    @staticmethod
+    def shard_payload(store: ReadStore, n_shards: int):
+        """Host payload layout: reads permuted so that shard s's contiguous
+        block holds exactly the reads {r : r % n_shards == s}, padded to
+        n_shards * block rows.  Returns (packed_sh, packed_rc_sh, block)."""
+        n = store.n_reads
+        block = -(-n // n_shards)
+        wp = store.packed.shape[1]
+        packed_sh = np.zeros((n_shards * block, wp), np.uint32)
+        packed_rc_sh = np.zeros((n_shards * block, wp), np.uint32)
+        rid = np.arange(n)
+        dst = (rid % n_shards) * block + rid // n_shards
+        packed_sh[dst] = store.packed
+        packed_rc_sh[dst] = store.packed_rc
+        return packed_sh, packed_rc_sh, block
+
+    # ------------------------------------------------------------------
+    def _fetch_rows(self, row_ids, payload, n_reads, block, fetch_cap):
+        """Exchange-fetch packed rows by global row id in [0, 2N) over all
+        shards: ids [0, N) are forward rows, [N, 2N) rc rows, id < 0 none;
+        read r is owned by shard r % n_shards, whose payload holds its
+        forward rows then its rc rows (2 * block, Wp); each peer pair has
+        `fetch_cap` request slots.  Returns per shard ((R, Wp) rows,
+        overflow)."""
+        mesh = self.mesh
+        n = mesh.size
+        routed = []
+        for ids in row_ids:
+            ids = ids.to(torch.int64)
+            rid = ids.abs() % n_reads
+            owner = torch.where(ids < 0, n, rid % n)
+            slots, overflow = _bin_by_owner(owner, n, fetch_cap)
+            req = torch.where(slots >= 0,
+                              ids[slots.clamp_min(0).to(torch.int64)], 0)
+            routed.append((slots, overflow, req.to(torch.int32)))
+        req_in = all_to_all(mesh, [r[2] for r in routed])
+        # owner-local gather
+        rows = []
+        for req, pay in zip(req_in, payload):
+            local = ((req % n_reads) // n).clamp(0, block - 1)
+            rows.append(pay[(local + block * (req >= n_reads)).to(
+                torch.int64)])
+        rows_back = all_to_all(mesh, rows)
+        wp = payload[0].shape[-1]
+        # scatter the replies to request order
+        return [(_scatter_rows(slots, ids.shape[0], back.reshape(-1, wp)),
+                 overflow)
+                for (slots, overflow, _), ids, back in zip(routed, row_ids,
+                                                           rows_back)]
+
+    def _superstep_dm(self, payload, lengths, qread, qj, qcode, qowner,
+                      marked, shards, n_reads, block, fetch_cap):
+        """The dist-mem superstep: the key-owner lookup of the base engine,
+        the payload row fetch, and the local check over fetched rows."""
+        cands, unions = self._candidates(qread, qj, qcode, qowner, marked,
+                                         shards)
+        # the fetch ids: read1's forward row and each valid candidate's
+        # forward or rc row; candidates pruned by the union cost no
+        # exchange either
+        ids = []
+        for d, (r2, orient, _, valid, _) in enumerate(cands):
+            rows2_id = torch.where(orient >= 2, r2 + n_reads, r2)
+            rows2_id = torch.where(valid, rows2_id, -1)
+            q_ids = torch.where(qj[d] < 0, -1, qread[d])      # pads: none
+            if self.prune_marked:
+                q_ids = torch.where(
+                    unions[d][qread[d].to(torch.int64)] == 0, q_ids, -1)
+            ids.append(torch.cat([q_ids, rows2_id.reshape(-1)]))
+        fetched = self._fetch_rows(ids, payload, n_reads, block,
+                                   fetch_cap)
+        outs = []
+        for d, (r2, orient, typ, valid, overflow) in enumerate(cands):
+            rows, f_overflow = fetched[d]
+            q_local = r2.shape[0]
+            edge_ok, cont_ok = candidate_checks_rows(
+                rows[:q_local], rows[q_local:].view(q_local, self.hit_cap, -1),
+                lengths[d], qread[d], qj[d], r2, orient, valid, k=self.k)
+            outs.append((r2, orient, typ, edge_ok, cont_ok,
+                         (overflow + f_overflow)[None], unions[d][None, :]))
+        return tuple(list(x) for x in zip(*outs))
+
+    def make_step(self, store: ReadStore, q_chunk: int):
+        """Returns (step, payload): `payload` = (packed_sh, packed_rc_sh),
+        the host layout of `shard_payload`; step(qread, qj, qcode, marked)
+        over chunks of `q_chunk` windows gives the base engine's outputs.
+        Shard s holds only its block of the payload, forward rows over rc
+        rows."""
+        n = self.mesh.size
+        packed_sh, packed_rc_sh, block = self.shard_payload(store, n)
+        fetch_cap = fetch_cap_for(q_chunk, n, self.hit_cap)
+        blocks = [slice(s * block, (s + 1) * block) for s in range(n)]
+        payload = [as_words(np.concatenate([packed_sh[b], packed_rc_sh[b]]),
+                            d)
+                   for b, d in zip(blocks, self.mesh.devices)]
+        shards = self._table_shards()
+        lengths = self.mesh.replicate(
+            np.ascontiguousarray(store.lengths, np.int32))
+
+        def step(qread, qj, qcode, marked):
+            return self._superstep_dm(
+                payload, lengths, *self._inputs(qread, qj, qcode, marked),
+                shards, store.n_reads, block, fetch_cap)
+        return step, (packed_sh, packed_rc_sh)

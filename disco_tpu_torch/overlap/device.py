@@ -95,6 +95,29 @@ def candidate_checks(packed_all, lengths, qread, qj, r2, orient, valid, *,
     return edge_ok & e_valid, cont_ok & c_valid
 
 
+def candidate_checks_rows(rows1, rows2, lengths, qread, qj, r2, orient,
+                          valid, *, k):
+    """`candidate_checks` over a (Q, H) candidate grid and rows fetched
+    beforehand instead of a resident packed_all: rows1 (Q, Wp) is read1's
+    forward row, rows2 (Q, H, Wp) the candidate's forward or rc row (the
+    caller resolves the orientation before fetching).  The dist-mem
+    superstep's check (dist/overlap_shard.py), where the read payload is
+    partitioned over the shards (reference's RMA fetch:
+    src/BuildGraphMPIRMA/src/HashTable.cpp:665-708).  The geometry is
+    `candidate_geometry`'s over the flattened grid; the check is K1 through
+    `_dual_check`.  Returns (edge_ok, cont_ok), (Q, H) bool."""
+    q, h = r2.shape
+    wp = rows1.shape[-1]
+    _, geo, e_valid, c_valid = candidate_geometry(
+        lengths, qread.to(torch.int64).repeat_interleave(h),
+        qj.to(torch.int32).repeat_interleave(h), r2.reshape(-1).to(torch.int64),
+        orient.reshape(-1), valid.reshape(-1), k=k)
+    blk1 = rows1[:, None, :].expand(q, h, wp).reshape(-1, wp)
+    edge_ok, cont_ok = _dual_check(blk1, rows2.reshape(-1, wp), *geo)
+    return ((edge_ok & e_valid).reshape(q, h),
+            (cont_ok & c_valid).reshape(q, h))
+
+
 def _dual_check(blk1, blk2, e_o1, e_o2, e_n, c_o1, c_n):
     """Edge + containment window compares over gathered (P, Wp) row
     blocks: the K1 wrapper over their columns."""

@@ -4,7 +4,8 @@
 `assemble` runs from the golden's directory because _ReadIDMap.txt records
 the reads' path as given.  Without a card the device backend is reached
 only through `run_buildg(..., device="cpu")` (test_torch_buildg.py);
-`assemble -backend device` must raise there, not fall back."""
+`assemble -backend device`, and -n and -rma, must raise there, not fall
+back; the tests run -n on CPU shards by naming the CPU (`cpu_shards`)."""
 import pathlib
 import shutil
 
@@ -83,10 +84,58 @@ def test_assemble_device_without_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [["-n", "2"], ["-rma"], ["-ecc"]],
                          ids=["n", "rma", "ecc"])
 def test_assemble_unported_options_raise(extra, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """-ecc is not yet ported.  -n and -rma (the distributed build) take the
+    CUDA cards: without one they raise before anything is written, and
+    nothing falls back to the CPU."""
+    if extra == ["-ecc"]:
+        raises = pytest.raises(NotImplementedError, match="not yet ported")
+    elif torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: -n and -rma run on it")
+    else:
+        raises = pytest.raises(RuntimeError, match="no CUDA card")
+    with raises:
         tmain(["assemble", "-inP", "x.fasta", "-d", str(tmp_path), "-o",
                "p", *extra])
     assert not list(tmp_path.iterdir())
+
+
+@pytest.fixture
+def cpu_shards(monkeypatch):
+    """The CLI's mesh on CPU shards: `-n N` lays out N shards over the
+    CUDA cards, so without a card the tests name the CPU, as
+    run_buildg_sharded(..., device="cpu") does."""
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.dist.mesh import make_mesh
+    monkeypatch.setattr(cli, "_mesh", lambda n: make_mesh(max(n, 1), "cpu"))
+
+
+@pytest.mark.parametrize("extra", [[], ["-rma"]], ids=["n4", "n4_rma"])
+def test_buildg_sharded_mini(extra, cpu_shards, tmp_path, monkeypatch):
+    """buildg -n 4 [-rma] on mini: every file equals the reference's golden
+    and disco_tpu's `buildg -n 4 [-rma]` (on its virtual CPU mesh)."""
+    monkeypatch.chdir(MINI)
+    for name, main in (("port", tmain), ("jax", jmain)):
+        (tmp_path / name).mkdir()
+        assert main(["buildg", "-pe", "reads.fasta", "-f",
+                     str(tmp_path / name / "mini"), "-p", "buildg.cfg",
+                     "-n", "4", *extra]) == 0
+    assert_same_tree(tmp_path / "port", tmp_path / "jax")
+    for suffix in GRAPH:
+        assert ((tmp_path / "port" / f"mini{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix
+
+
+def test_assemble_sharded_mini(cpu_shards, tmp_path, monkeypatch):
+    """assemble -n 4 -rma: reads to scaffolds with the dist-mem buildG; the
+    tree equals disco_tpu's assemble -n 4 -rma, and the graph the
+    reference's goldens."""
+    monkeypatch.chdir(MINI)
+    for name, main in (("port", tmain), ("jax", jmain)):
+        assert _assemble(main, tmp_path / name, "-n", "4", "-rma") == 0
+    assert assert_same_tree(tmp_path / "port", tmp_path / "jax") > 20
+    for suffix in GRAPH:
+        assert ((tmp_path / "port" / "graph" / f"mini{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix
 
 
 def test_cli_parsimplify_mini(tmp_path):

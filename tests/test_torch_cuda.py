@@ -3,7 +3,8 @@ K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
 tools/exp_mxu_fetch.py: T3 and its unpipelined control) against their plain
-versions, on a CUDA card.
+versions, on a CUDA card; and the distributed buildG (dist/) with its
+shards on the card, against CPU shards and the goldens.
 Tolerance: exact — the outputs are booleans and integers.
 
 This file imports neither jax nor disco_tpu, so it also runs where only
@@ -12,6 +13,8 @@ PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Without a card every test skips."""
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -785,3 +788,83 @@ def test_wide_columns_launch_the_direct_kernel(cuda_device, w):
         assert fn.launches == before + 1
         assert control.launches == before_control
         _assert_same([want], [got])
+
+
+# ---------------------------------------------------------------------------
+# the distributed buildG (dist/): four shards on the card
+# ---------------------------------------------------------------------------
+MINI = pathlib.Path(__file__).resolve().parent / "golden" / "mini"
+
+
+def _mini_state():
+    from disco_tpu_torch.index.table import FingerprintTable
+    store = ReadStore.from_files([str(MINI / "reads.fasta")], [], 30,
+                                 reference_task_order=False)
+    return store, FingerprintTable.build(store, 29)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_mem", [False, True], ids=["replicated",
+                                                          "dist_mem"])
+def test_dist_engines_on_the_card_match_cpu_shards(cuda_device, dist_mem):
+    """One superstep of both engines at n = 4, the shards on the card (K1's
+    kernel) against the same engine on four CPU shards (K1's plain
+    version), on two chunks of mini with a tenth of the reads marked: every
+    grid, the overflows and the unions equal; K1 launched once a shard."""
+    from disco_tpu_torch.dist import overlap_shard as shard
+    from disco_tpu_torch.dist.mesh import make_mesh
+    from disco_tpu_torch.overlap.relation import window_codes
+
+    store, table = _mini_state()
+    chunk = 4 * 2048
+    kw = dict(hit_cap=4, route_cap=1024, prune_marked=True)
+    engine = shard.DistMemOverlapEngine if dist_mem else \
+        shard.ShardedOverlapEngine
+    steps = []
+    for mesh in (make_mesh(4), make_mesh(4, "cpu")):
+        assert mesh.devices[0].type == ("cuda" if not steps else "cpu")
+        eng = engine.build(store, table, mesh, **kw)
+        steps.append(eng.make_step(store, q_chunk=chunk)[0] if dist_mem
+                     else eng.make_step(store))
+    qread, qj, qcode = window_codes(store, table.k)
+    rng = np.random.default_rng(0)
+    for s in (0, len(qread) // 2):
+        marked = (rng.random(store.n_reads) < 0.1).astype(np.int32)
+        args = (qread[s:s + chunk], qj[s:s + chunk], qcode[s:s + chunk],
+                marked)
+        before = port.fused_compare_dual.launches
+        got = shard.gather(steps[0](*args))
+        torch.cuda.synchronize()
+        assert port.fused_compare_dual.launches == before + 4
+        want = shard.gather(steps[1](*args))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert got[3].any() and got[5].sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_mem", [False, True], ids=["replicated",
+                                                          "dist_mem"])
+def test_dist_buildg_forced_overflow_on_the_card(cuda_device, dist_mem,
+                                                 tmp_path, monkeypatch):
+    """buildg -n 4 [-rma] on mini with route_cap 8: every chunk overflows
+    and is re-run exactly (K1 on the card), counted in fallback_chunks, and
+    the files equal the reference's goldens; K1 launched, K2 not."""
+    from disco_tpu_torch.dist.builder import run_buildg_sharded
+
+    monkeypatch.chdir(MINI)        # _ReadIDMap.txt records the path as given
+    k1, k2 = port.fused_compare_dual.launches, \
+        port.fused_compare_dual_fetch.launches
+    stats = {}
+    run_buildg_sharded(["reads.fasta"], [], str(tmp_path / "mini"), 4,
+                       min_overlap=30, write_par_graph_size=1000,
+                       budget=1 << 15, route_cap=8, dist_mem=dist_mem,
+                       stats=stats)
+    torch.cuda.synchronize()
+    assert stats["fallback_chunks"] >= 1 and stats["chunks"] >= 2, stats
+    assert port.fused_compare_dual.launches > k1
+    assert port.fused_compare_dual_fetch.launches == k2
+    for suffix in ("_0_parGraph.txt", "_0_containedReads.txt",
+                   "_0_startRead.txt", "_ReadIDMap.txt"):
+        assert ((tmp_path / f"mini{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix

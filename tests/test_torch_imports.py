@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax():
               "simplify.params", "simplify.core", "simplify.dataset",
               "simplify.pargraph", "simplify.engine", "simplify.flow",
               "simplify.scaffold", "simplify.contigs", "simplify.gfa",
-              "simplify.cytoscape", "simplify.driver", "utils.stats"):
+              "simplify.cytoscape", "simplify.driver", "utils.stats",
+              "dist", "dist.mesh", "dist.overlap_shard", "dist.builder",
+              "tools.bench_scaling"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -66,7 +68,9 @@ def test_cli_help_without_jax():
 
 
 @pytest.mark.parametrize("cmd,opts", [
-    ("assemble", ("-inP", "-backend", "-p3", "--write-par-graph-size")),
+    ("assemble", ("-inP", "-backend", "-p3", "--write-par-graph-size",
+                  "-rma", "buildG-MPIRMA")),
+    ("buildg", ("-pe", "-rma", "buildG-MPI", "-n")),
     ("simplify", ("-fpi", "-crd", "-simPth")),
     ("parsimplify", ("edge_file", "min_ovl")),
     ("stats", ("denovo", "--min-len"))])
@@ -103,16 +107,43 @@ def test_cli_buildg_runs(tmp_path):
 
 
 def test_cli_unported_options_raise():
-    code = ("from disco_tpu_torch.cli import main\n"
-            "for extra in (['-n', '2'], ['-rma']):\n"
+    """buildg -n and -rma (the distributed build) take the CUDA cards:
+    without one they raise, in a process without jax; assemble -ecc is not
+    yet ported."""
+    code = ("import torch\n"
+            "from disco_tpu_torch.cli import main\n"
+            "cases = [(['assemble', '-inP', 'x.fasta', '-d', 'd', '-o', 'p',\n"
+            "           '-ecc'], NotImplementedError, 'not yet ported')]\n"
+            "if not torch.cuda.is_available():\n"
+            "    cases += [(['buildg', '-se', 'x.fasta', '-f', 'p'] + extra,\n"
+            "               RuntimeError, 'no CUDA card')\n"
+            "              for extra in (['-n', '2'], ['-rma'])]\n"
+            "for argv, exc, msg in cases:\n"
             "    try:\n"
-            "        main(['buildg', '-se', 'x.fasta', '-f', 'p'] + extra)\n"
-            "    except NotImplementedError as e:\n"
-            "        assert 'not yet ported' in str(e)\n"
+            "        main(argv)\n"
+            "    except exc as e:\n"
+            "        assert msg in str(e), e\n"
             "    else:\n"
-            "        raise AssertionError(extra)\n")
+            "        raise AssertionError(argv)\n"
+            "import sys\n"
+            "assert 'jax' not in sys.modules\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
+
+
+def test_dist_modules_use_no_jax_and_no_torch_distributed():
+    """The distributed build runs its mesh in one process with list
+    collectives: no module of disco_tpu_torch/dist/ (nor the scaling tool)
+    imports or calls torch.distributed, jax or disco_tpu."""
+    for p in [*sorted((PKG / "dist").glob("*.py")),
+              PKG / "tools" / "bench_scaling.py"]:
+        text = p.read_text()
+        for word in ("import torch.distributed", "from torch.distributed",
+                     "from torch import distributed", "torch.distributed.",
+                     "import jax", "from jax",
+                     "import disco_tpu\n", "from disco_tpu.",
+                     "import disco_tpu."):
+            assert word not in text, (p.name, word)
 
 
 def _help(module):
@@ -126,6 +157,12 @@ def _help(module):
     res = _run(code)
     assert res.returncode == 0, res.stderr
     return res.stdout
+
+
+def test_bench_scaling_help_without_jax():
+    out = _help("disco_tpu_torch.tools.bench_scaling")
+    for opt in ("--shards", "--dist-mem", "--budget", "--device"):
+        assert opt in out
 
 
 def test_bench_verify_help_without_jax():
