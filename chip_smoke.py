@@ -10,13 +10,15 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    limit, and the torch and CUDA versions;
 2. build: the CUDA kernels (nvcc, sm_90a) and the C++ host libraries (g++)
    from the checkout's sources, timed, and `ptxas -v`'s registers, shared
-   memory and spills for K3's, K4's, K6's, T1's, K5's and T3's kernels and
+   memory and spills for K1's rows route (compaction and check), K3's,
+   K4's, K6's, T1's, K5's and T3's kernels and
    K6's, T1's, K5's and T3's controls, with their tiles, stages and blocks
    at the main path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
    genome, 30x, 250 bp paired reads, 500 bp insert, seed 42);
    MinOverlap4BuildGraph from the shipped cfg (30);
-4. kernels: both dual-check kernels against their plain PyTorch versions
+4. kernels: both dual-check kernels (and, past the row, K1's rows route)
+   against their plain PyTorch versions
    on the card, exactly: on real candidate chunks at the main path's shape
    (2^20 windows, cand_cap 4M pairs, Wp = 17), on an edge-case batch
    (n = 0, every bit phase, windows ending at the read's last base, P not
@@ -34,8 +36,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    native (C++) backend must give byte-identical files, and the xla
    relation must equal the device one.  Prints the stage walls, fallback
    chunks and peak device memory;
-6. the device engine with its K1 check (fetch=False), its own count set
-   to 0 before it: the relation must equal the K2 one;
+6. the device engine with its K1 check (fetch=False: K1's rows route,
+   `fused_compare_dual_rows`), its count set to 0 before it: the
+   relation must equal the K2 one;
 7. verify paths, the main path of bench_verify (`python -m
    disco_tpu_torch.bench_verify`): every candidate pair of the same read
    set (bench_verify.candidate_batch, MinOverlap 30) and the BFS relabel
@@ -96,23 +99,31 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
 10. the distributed buildG (`python -m disco_tpu_torch buildg -n 4
    [-rma]`, dist/builder.py), four shards on the one card:
    __graft_entry__.py's three dryrun_multichip runs (replicated, dist-mem,
-   and a forced overflow, route_cap 8, re-run exactly through K1) at a
-   budget of 2^13, each with at least 3 chunks and its files equal to the
-   single-device buildG's; the golden `mini` through `buildg -n 4` and
-   `-n 4 -rma`, equal to the reference's outputs; then phase 3's set
-   through `buildg -n 4 -rma` and `buildg -n 4` (`-w 20000`), each with
-   the K1 and K2 counts set to 0 just before and read just after (K1 above
-   0, K2 0) and its files equal to phase 5's native files.  Prints each
-   run's wall (no profiler runs during the timed runs) and `clock`
-   stages, chunks and fallback chunks, the bytes a shard moves through the
-   collectives a superstep (`tools.bench_scaling.superstep_bytes`) and the
-   peak device memory; then three supersteps of each engine under
-   torch.profiler and cProfile (the device's busy time and idle share,
-   device operations and host functions by time), and K1 at the dist
-   path's shape (shard 0's check in the first superstep, captured) against
-   its plain version, back to back and held, on the whole (Q, H) grid and
-   on its live lanes alone (the pairs with an edge or a containment window
-   to compare, gathered into a dense launch).
+   and a forced overflow, route_cap 8, re-run exactly through K1's column
+   kernel) at a budget of 2^13, each with at least 3 chunks and its files
+   equal to the single-device buildG's, the supersteps through K1's rows
+   route (the column kernel 0 outside the forced overflow); the golden
+   `mini` through `buildg -n 4` and `-n 4 -rma`, equal to the reference's
+   outputs; then phase 3's set through `buildg -n 4 -rma` and `buildg -n
+   4` (`-w 20000`), each with the K1 (rows route and column kernel) and K2
+   counts set to 0 just before and read just after (the rows route above
+   0, the column kernel, the rows route's timing designs and K2 0) and its
+   files equal to phase 5's native files.  Prints each run's wall (no
+   profiler runs during the timed runs) and `clock` stages, chunks and
+   fallback chunks, the bytes a shard moves through the collectives a
+   superstep (`tools.bench_scaling.superstep_bytes`) and the peak device
+   memory; then three supersteps of each engine under torch.profiler and
+   cProfile (the device's busy time and idle share, device operations and
+   host functions by time).  Last, K1 at the dist path's shape on shard
+   0's grid of the first dist-mem superstep (the rows route's inputs,
+   captured): the rows route, run once with host synchronisation made an
+   error, equal to its plain version, to the column route (the engine's
+   expand, gathers and transposes, then the column kernel), to the column
+   kernel on the live lanes alone and to the route's other designs; then,
+   in turns, back to back and held, the column route, the rows route, its
+   compaction and its check alone, its designs and the column kernels,
+   each against the bound and row-layout sector floor of PERF.md
+   section 2 (`rows_work`).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -142,9 +153,10 @@ time (the union of its kernel and copy intervals), its idle share, and the
 device operations by time.
 
 Prints the kernels' JSON line (K1 and K2 also with `assemble_launches`,
-phase 9's counts, and `dist_launches`, phase 10's; K1 with its `dist_*`
-times and bound at the dist shape, whole and live lanes only), the card's
-name and power limit, and last
+phase 9's counts, and `dist_launches`, phase 10's; K1 with its rows
+route's `dist_rows_*` times, bound, sector floor, live lanes and launches
+at the dist shape, and the column route and column kernels there), the
+card's name and power limit, and last
 {"ok": true, "device": {...}}."""
 import argparse
 import concurrent.futures
@@ -193,6 +205,7 @@ FETCH_KERNELS = (
 )
 # the kernels whose `ptxas -v` phase 2 prints, by source
 PTXAS_KERNELS = {
+    "dual_compare.cu": ("dual_compare_rows_fused_kernel",),
     "window_compare.cu": ("window_compare_kernel",
                           "window_compare_fetch_kernel",
                           "window_compare_fetch_both_kernel",
@@ -504,7 +517,7 @@ def past_row_check(eng, errs, p=3001, seed=2):
     r1, r2 = (torch.from_numpy(r).to(DEVICE) for r in (rows1, rows2))
     a, b = table[r1].T.contiguous(), table[r2].T.contiguous()
     a_z, b_z = padded[r1].T.contiguous(), padded[r2].T.contiguous()
-    r1 = r1.to(torch.int32)
+    r1, r2 = r1.to(torch.int32), r2.to(torch.int32)
     want = fk.fused_compare_dual_plain(a_z, b_z, *geo)
     wrapped = fk.fused_compare_dual_plain(a, b, *geo)
     check(want[0].any() and want[1].any(), "past-row batch has no match")
@@ -513,7 +526,10 @@ def past_row_check(eng, errs, p=3001, seed=2):
     for name, got, ref in (
             ("K1", fk.fused_compare_dual(a, b, *geo), want),
             ("K2", fk.fused_compare_dual_fetch(table, b, r1, *geo),
-             fk.fused_compare_dual_fetch_plain(padded, b_z, r1, *geo))):
+             fk.fused_compare_dual_fetch_plain(padded, b_z, r1, *geo)),
+            ("K1", fk.fused_compare_dual_rows(table, r1, table, r2, *geo),
+             fk.fused_compare_dual_rows_plain(padded, r1, padded, r2,
+                                              *geo))):
         err = max_abs_err(got, ref)
         check(err == 0, f"{name} disagrees with zero fill past the row on "
                         f"{int((got[0] != ref[0]).sum())} edge and "
@@ -521,8 +537,8 @@ def past_row_check(eng, errs, p=3001, seed=2):
         errs[name] = max(errs[name], err)
     del padded
     say(f"kernels: past-row batch P = {p} (up to one word past a {wp}-word "
-        "row, the table's last row included): K1 and K2 == plain over "
-        "zero-padded rows")
+        "row, the table's last row included): K1, K2 and K1's rows route "
+        "== plain over zero-padded rows")
 
 
 def dual_bounds(rows1, geo, wp):
@@ -1626,7 +1642,8 @@ def ptxas_report(source, names):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"((?:window|row)_[a-z_]*_kernel)", m.group(1))
+            k = re.search(r"((?:window|row|dual)_[a-z_]*_kernel)",
+                          m.group(1))
             fn = k.group(1) if k else None
             continue
         if fn not in names:
@@ -1869,14 +1886,178 @@ def sharded_record(builder, rec):
         builder.run_buildg_sharded, builder.chunk_plan = real_run, real_plan
 
 
+def rows_work(t1, r1, t2, r2, geo):
+    """The work of K1's rows route on one grid (one rule for both routes,
+    PERF.md section 2): every lane's e_n and c_n read and its two flags
+    written (10 B); a live lane's two row indices and the offsets of its
+    windows with a length (4 B each); the words its windows span, each
+    word of each distinct (table, row) once (by address: one table passed
+    twice counts once); about 5 operations a compared word.  Returns
+    {lanes, live, words, row_sectors, geo_sectors, compared}: the bytes of
+    the first two, of the words, of the tables' 32-B sectors under the
+    windows, and of the sectors of the index and offset arrays under the
+    live lanes, the live lanes and the compared words."""
+    import torch
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    e_o1, e_o2, e_n, c_o1, c_n = geo
+    p, wp = len(e_n), t1.shape[1]
+    sel = torch.nonzero((e_n > 0) | (c_n > 0)).squeeze(1)
+    e_sel, c_sel = sel[e_n[sel] > 0], sel[c_n[sel] > 0]
+    addrs = []
+    w = torch.arange(wp, device=sel.device)
+    for table, rows, windows in ((t1, r1, ((e_o1, e_n), (c_o1, c_n))),
+                                 (t2, r2, ((e_o2, e_n), (0 * c_o1, c_n)))):
+        row = rows[sel].long()
+        inside = (row >= 0) & (row < table.shape[0])   # else: zeros, no read
+        base = table.data_ptr() // 4 + row * wp
+        for o, n in windows:
+            first, last = fk.read_words(o[sel], n[sel], wp)
+            m = (w >= first[:, None]) & (w <= last[:, None]) & inside[:, None]
+            addrs.append((base[:, None] + w)[m])
+    words = torch.unique(torch.cat(addrs))
+    geo_sectors = sum(
+        int(torch.unique((a.data_ptr() // 4 + lanes) >> 3).numel())
+        for a, lanes in ((r1, sel), (r2, sel), (e_o1, e_sel), (e_o2, e_sel),
+                         (c_o1, c_sel)))
+    return {"lanes": 10 * p,
+            "live": 4 * (2 * len(sel) + 2 * len(e_sel) + len(c_sel)),
+            "live_lanes": len(sel), "words": 4 * len(words),
+            "row_sectors": 32 * int(torch.unique(words >> 3).numel()),
+            "geo_sectors": 32 * geo_sectors,
+            "compared": compared_words(e_n[sel]) + compared_words(c_n[sel])}
+
+
+def rows_bounds(work):
+    """{route, check}: the bound of the whole route, its row-layout sector
+    floor (the tables' sectors under the windows in place of their words)
+    and its whole-sector floor (also the index and offset arrays' sectors
+    under the live lanes in place of their bytes); the same for a
+    two-kernel design's check alone on the live list (per live lane its
+    id, e_n, c_n and two flags, 14 B, beside its indices and offsets)."""
+    out = {}
+    for name, per in (("route", work["lanes"]),
+                      ("check", 14 * work["live_lanes"])):
+        bd = bound(per + work["live"] + work["words"], 5 * work["compared"])
+        bd["sector_floor_ms"] = 1e3 * (per + work["live"] +
+                                       work["row_sectors"]) / HBM_BYTES_PER_S
+        bd["whole_sector_floor_ms"] = 1e3 * (
+            per + work["geo_sectors"] + work["row_sectors"]) / HBM_BYTES_PER_S
+        out[name] = bd
+    return out
+
+
+def rows_turns(fns, reps=20):
+    """Each fn timed back to back and held, in turns: forward, then
+    backward; the mean of the two passes.  Returns {name: (ms, held_ms)}."""
+    order = list(fns)
+    got = {k: [] for k in order}
+    for names in (order, order[::-1]):
+        for k in names:
+            got[k].append((cuda_ms(fns[k], reps),
+                           cuda_ms(fns[k], reps, hold=True)))
+    return {k: tuple(sum(x) / 2 for x in zip(*v)) for k, v in got.items()}
+
+
+def dist_rows_check(t1, r1, t2, r2, geo, h):
+    """K1 at the dist shape, on the grid captured from the dist-mem
+    superstep (shard 0's inputs to the rows route): the rows route against
+    its plain version, the column route (the engine's expand, gathers,
+    transposes and the column kernel, `_dual_check`), the column kernel
+    over the live lanes' columns gathered densely and the route's other
+    designs, every flag equal; the route once with host synchronisation
+    made an error; then each timed in turns, with the bound and sector
+    floor of section 2.  Returns (times, errs, bounds, shape)."""
+    import torch
+    from disco_tpu_torch.overlap import device as dv
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
+    p, (q, wp) = len(r1), t1.shape
+    lane = torch.arange(p, device=r1.device)
+    check(p == q * h and torch.equal(r1.long(), lane // h)
+          and torch.equal(r2.long(), lane) and t2.shape[0] == p,
+          "the captured dist-mem grid is not (rows1[p // H], rows2[p])")
+    route = lambda: fk.fused_compare_dual_rows(t1, r1, t2, r2, *geo)  # noqa
+    plain = lambda: fk.fused_compare_dual_rows_plain(        # noqa: E731
+        t1, r1, t2, r2, *geo)
+
+    def column_route():    # read1's rows expanded, both blocks transposed
+        blk1 = t1[:, None, :].expand(q, h, wp).reshape(-1, wp)
+        return dv._dual_check(blk1, t2, *geo)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = route()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = plain()
+    torch.cuda.synchronize()
+    errs = {"rows": max_abs_err(got, want)}
+    check(errs["rows"] == 0, "K1's rows route at the dist shape disagrees "
+          f"with its plain version on {int((got[0] != want[0]).sum())} edge "
+          f"and {int((got[1] != want[1]).sum())} containment flags")
+    errs["column_route"] = max_abs_err(column_route(), got)
+    check(errs["column_route"] == 0,
+          "the column route disagrees with the rows route at the dist shape")
+    # the column kernel on the live pairs' columns gathered densely
+    sel = torch.nonzero((geo[2] > 0) | (geo[4] > 0)).squeeze(1)
+    a_l = t1[(sel // h)].T.contiguous()
+    b_l = t2[sel].T.contiguous()
+    geo_l = tuple(g[sel].contiguous() for g in geo)
+    live = lambda: fk.fused_compare_dual(a_l, b_l, *geo_l)     # noqa: E731
+    got_l = live()
+    errs["live"] = max(max_abs_err(got_l, tuple(g[sel] for g in got)),
+                       max_abs_err(got_l, fk.fused_compare_dual_plain(
+                           a_l, b_l, *geo_l)))
+    check(errs["live"] == 0, "K1 on the live lanes disagrees with the rows "
+                             "route or its plain version")
+    out = (torch.empty(p, dtype=torch.bool, device=r1.device),
+           torch.empty(p, dtype=torch.bool, device=r1.device))
+    scratch = (torch.empty(p, dtype=torch.int32, device=r1.device),
+               torch.empty(1, dtype=torch.int32, device=r1.device))
+    fns = {"column_route": column_route, "route": route}
+    for name in k1d.DESIGNS:
+        errs[name] = max_abs_err(
+            k1d.design(name, "route", t1, r1, t2, r2, *geo), got)
+        check(errs[name] == 0, f"the rows route's design {name} disagrees "
+                               "at the dist shape")
+        fns[name] = (lambda d=name: k1d.design(d, "route", t1, r1, t2, r2,
+                                               *geo))
+    k1d.design("scalar", "compact", t1, r1, t2, r2, *geo, out=out,
+               scratch=scratch)
+    torch.cuda.synchronize()
+    n_live = int(scratch[1])
+    check(n_live == len(sel), f"the compaction listed {n_live} live lanes, "
+                              f"not {len(sel)}")
+    # the listing designs' stages apart: the compaction into the list, and
+    # each design's check of that list
+    fns["compact"] = lambda: k1d.design(                      # noqa: E731
+        "scalar", "compact", t1, r1, t2, r2, *geo, out=out, scratch=scratch)
+    for name in k1d.LISTED:
+        fns["check_" + name] = (
+            lambda d=name: k1d.design(d, "check", t1, r1, t2, r2, *geo,
+                                      out=out, scratch=scratch))
+    a, b = columns = (
+        t1[:, None, :].expand(q, h, wp).reshape(-1, wp).T.contiguous(),
+        t2.T.contiguous())
+    fns["column"] = lambda: fk.fused_compare_dual(a, b, *geo)  # noqa: E731
+    fns["live"] = live
+    times = rows_turns(fns)
+    times["plain"] = (cuda_ms(plain, 3), None)
+    del a_l, b_l, a, b, columns
+    bds = rows_bounds(rows_work(t1, r1, t2, r2, geo))
+    shape = {"P": p, "Wp": wp, "hit_cap": h, "live_P": len(sel),
+             "edge_windows": int((geo[2] > 0).sum()),
+             "containment_windows": int((geo[4] > 0).sum())}
+    return times, errs, bds, shape
+
+
 def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
     """Both engines' supersteps on the full set, four shards on the card,
     as `buildg -n 4 [-rma]` makes them: the first chunk once, then chunks
     1 .. n_profiled, each pulled to the host as `_relation` pulls it, under
-    `profiled`.  The first dist-mem superstep's K1 inputs (shard 0's, from
-    `_dual_check`) are kept: the kernel against its plain version,
-    exactly, and timed back to back and held, on the whole grid and on its
-    live lanes alone.  Returns (times, err, bound, shape)."""
+    `profiled`.  The first dist-mem superstep's inputs to K1's rows route
+    (shard 0's) are kept for `dist_rows_check`."""
     import numpy as np
     import torch
     from disco_tpu_torch.dist import builder
@@ -1888,7 +2069,6 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
     from disco_tpu_torch.index.table import FingerprintTable
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import device as dv
-    from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.overlap.relation import window_codes
 
     store = ReadStore.from_files([str(fasta)], [], min_ovl)
@@ -1900,12 +2080,12 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
                       np.int32)
     mesh = make_mesh(DIST_SHARDS)
     seen = []
-    real = dv._dual_check
+    real = dv.fused_compare_dual_rows
 
-    def capture(blk1, blk2, *geo):
+    def capture(*args):
         if not seen:
-            seen.append((blk1.T.contiguous(), blk2.T.contiguous(), geo))
-        return real(blk1, blk2, *geo)
+            seen.append(args)
+        return real(*args)
 
     def chunks(step, first, last):
         for c in range(first, last):
@@ -1927,60 +2107,19 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
                            route_cap=route_cap, prune_marked=True)
         step = (eng.make_step(store, q_chunk=chunk)[0]
                 if engine is DistMemOverlapEngine else eng.make_step(store))
-        dv._dual_check = capture
+        dv.fused_compare_dual_rows = capture
         try:
             chunks(step, 0, 1)
         finally:
-            dv._dual_check = real
+            dv.fused_compare_dual_rows = real
         profiled(lambda: chunks(step, *profiled_chunks),
                  tag=f"dist: {name}: supersteps {profiled_chunks[0]} to "
                      f"{profiled_chunks[1] - 1} profiled")
         del step, eng
     torch.cuda.synchronize()
-    a, b, geo = seen[0]
+    t1, r1, t2, r2, *geo = seen[0]
     del seen
-    kern = lambda: fk.fused_compare_dual(a, b, *geo)           # noqa: E731
-    plain = lambda: fk.fused_compare_dual_plain(a, b, *geo)    # noqa: E731
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, f"K1 at the dist shape disagrees with its plain version "
-                    f"on {int((got[0] != want[0]).sum())} edge and "
-                    f"{int((got[1] != want[1]).sum())} containment flags")
-    times = {"ms": cuda_ms(kern, 20), "held_ms": cuda_ms(kern, 20, hold=True),
-             "plain_ms": cuda_ms(plain, 3)}
-    bd = dual_bounds(None, geo, a.shape[0])[0]
-    live = int((geo[2] > 0).sum()), int((geo[4] > 0).sum())
-
-    # the same check on the live lanes alone: the pairs with an edge or a
-    # containment window to compare, gathered into one dense launch (the
-    # rest answer True for both and are masked by the engine)
-    sel = torch.nonzero((geo[2] > 0) | (geo[4] > 0)).squeeze(1)
-    a_l, b_l = a[:, sel].contiguous(), b[:, sel].contiguous()
-    geo_l = tuple(g[sel].contiguous() for g in geo)
-    kern_l = lambda: fk.fused_compare_dual(a_l, b_l, *geo_l)  # noqa: E731
-    plain_l = lambda: fk.fused_compare_dual_plain(          # noqa: E731
-        a_l, b_l, *geo_l)
-    got_l, want_l = kern_l(), plain_l()
-    torch.cuda.synchronize()
-    err_l = max_abs_err(got_l, want_l)
-    check(err_l == 0, "K1 on the live lanes disagrees with its plain version")
-    check(all(bool((gl == g[sel]).all()) for gl, g in zip(got_l, got)),
-          "K1 on the live lanes disagrees with the whole grid's launch")
-    times.update(live_ms=cuda_ms(kern_l, 20),
-                 live_held_ms=cuda_ms(kern_l, 20, hold=True),
-                 live_plain_ms=cuda_ms(plain_l, 3))
-    bd_l = dual_bounds(None, geo_l, a.shape[0])[0]
-    floor, floor_l = dual_floor(geo, a.shape[0]), dual_floor(geo_l,
-                                                             a.shape[0])
-    shape = {"P": a.shape[1], "Wp": a.shape[0], "hit_cap": hit_cap,
-             "chunk": chunk, "edge_windows": live[0],
-             "containment_windows": live[1], "live_P": int(sel.numel()),
-             "live_max_abs_err": err_l, "live_bytes": bd_l["bytes"],
-             "live_bound_ms": bd_l["bound_ms"],
-             "sector_floor_ms": floor["sector_floor_ms"],
-             "live_sector_floor_ms": floor_l["sector_floor_ms"]}
-    return times, err, bd, shape
+    return dist_rows_check(t1, r1, t2, r2, tuple(geo), hit_cap)
 
 
 def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
@@ -1993,6 +2132,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
     from disco_tpu_torch.dist import builder
     from disco_tpu_torch.dist.overlap_shard import fetch_cap_for
     from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
     from disco_tpu_torch.tools.bench_scaling import superstep_bytes
 
     n = DIST_SHARDS
@@ -2007,22 +2147,31 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
     for name, extra in (("replicated", {}), ("dist-mem", {"dist_mem": True}),
                         ("forced overflow", {"route_cap": 8})):
         stats = {}
+        fk.fused_compare_dual.launches = 0
+        fk.fused_compare_dual_rows.launches = 0
         t0 = time.perf_counter()
         builder.run_buildg_sharded([str(reads)], [], str(dry / name), n,
                                    budget=1 << 13, stats=stats, **kw, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        columns = fk.fused_compare_dual.launches
+        rows = fk.fused_compare_dual_rows.launches
         check(stats["chunks"] >= 3, f"dryrun {name}: {stats}")
+        if name == "forced overflow":
+            check(stats["fallback_chunks"] >= 1 and columns > 0,
+                  f"dryrun {name}: {stats}, column kernel {columns}")
+        else:
+            check(columns == 0 and rows > 0,
+                  f"dryrun {name}: column kernel {columns}, rows {rows}")
         if name == "replicated":
             check(stats["fallback_chunks"] == 0, f"dryrun {name}: {stats}")
-        if name == "forced overflow":
-            check(stats["fallback_chunks"] >= 1, f"dryrun {name}: {stats}")
         for o in DIST_OUTPUTS:
             check((dry / f"{name}{o}").read_bytes()
                   == (dry / f"REF{o}").read_bytes(),
                   f"dryrun {name}{o} differs from the single-device run")
         say(f"dist: dryrun {name}, {n} shards on the card: {wall:.2f} s, "
             f"{stats['chunks']} chunks, {stats['fallback_chunks']} fallback; "
+            f"K1's rows route {rows} launches, column kernel {columns}; "
             "files byte-identical to the single-device buildG")
 
     # ---- the golden mini through the command line -----------------------
@@ -2050,7 +2199,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
             "byte-identical to the reference outputs")
 
     # ---- the full set: buildg -n 4 -rma, then buildg -n 4 ----------------
-    launches = {"K1": 0, "K2": 0}
+    launches = {"K1": 0, "K2": 0, "K1_rows": 0}
     for extra in (["-rma"], []):
         flag = "".join(" " + x for x in extra)
         prefix = tmp / ("dist" + "".join(extra))
@@ -2060,6 +2209,8 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
         torch.cuda.reset_peak_memory_stats()
         fk.fused_compare_dual.launches = 0
         fk.fused_compare_dual_fetch.launches = 0
+        fk.fused_compare_dual_rows.launches = 0
+        k1d.design.launches = 0
         argv = ["buildg", "-pe", str(fasta), "-f", str(prefix), "-p",
                 str(CFG_DIR / "cfg.cfg"), "-w", "20000", "-n", str(n), *extra]
         t0 = time.perf_counter()
@@ -2069,13 +2220,20 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
         wall = time.perf_counter() - t0
         k1 = fk.fused_compare_dual.launches
         k2 = fk.fused_compare_dual_fetch.launches
+        k1_rows = fk.fused_compare_dual_rows.launches
         peak = torch.cuda.max_memory_allocated()
         stages = list(walls.walls)
         check(rc == 0, f"buildg -n {n}{flag} exited {rc}")
-        check(k1 > 0, f"buildg -n {n}{flag} never launched K1")
+        check(k1_rows > 0, f"buildg -n {n}{flag} never launched K1's rows "
+                           "route")
+        check(k1 == 0, f"buildg -n {n}{flag} launched K1's column kernel")
         check(k2 == 0, f"buildg -n {n}{flag} launched K2")
+        check(k1d.design.launches == 0,
+              f"buildg -n {n}{flag} launched a timing design of the rows "
+              "route")
         launches["K1"] += k1
         launches["K2"] += k2
+        launches["K1_rows"] += k1_rows
         for suffix in OUTPUTS:
             check((tmp / f"{prefix.name}{suffix}").read_bytes()
                   == (tmp / f"native{suffix}").read_bytes(),
@@ -2092,45 +2250,77 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
             f"{wall:.2f} s: " + ", ".join(f"{st} {t:.2f} s"
                                           for st, t in stages))
         say(f"dist: {mode}: files byte-identical to the native buildG's; "
-            f"launches K1 {k1}, K2 {k2}; {stats['chunks']} chunks, "
+            f"launches K1's rows route {k1_rows}, K1's column kernel {k1}, "
+            f"K2 {k2}; {stats['chunks']} chunks, "
             f"{stats['fallback_chunks']} fallback; hit_cap {hit_cap}, chunk "
             f"{chunk} windows, route_cap {route_cap}, fetch_cap {fetch_cap}; "
             f"{nbytes} B a shard a superstep through the collectives "
             f"(bench_scaling.superstep_bytes); peak device memory "
             f"{peak / 2**20:.1f} MiB")
 
-    times, err, bd, shape = dist_supersteps(fasta, min_ovl)
-    say(f"dist: K1 at the dist shape (shard 0, first superstep of -rma: "
-        f"P = {shape['P']}, Wp = {shape['Wp']}, hit_cap {shape['hit_cap']}, "
-        f"{shape['edge_windows']} live edge and "
-        f"{shape['containment_windows']} live containment windows): "
-        f"{times['ms']:.4f} ms (held {times['held_ms']:.4f} ms), plain "
-        f"{times['plain_ms']:.4f} ms, == plain; {bd['bytes']} B, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
-        f"{bd['bound_ms'] / times['held_ms']:.0%} of its bound held; "
-        f"sector floor {shape['sector_floor_ms']:.4f} ms")
-    say(f"dist: K1 on the live lanes alone (P = {shape['live_P']}): "
-        f"{times['live_ms']:.4f} ms (held {times['live_held_ms']:.4f} ms), "
-        f"plain {times['live_plain_ms']:.4f} ms, == plain and == the whole "
-        f"grid's launch on them; {shape['live_bytes']} B, bound "
-        f"{shape['live_bound_ms']:.4f} ms; "
-        f"{shape['live_bound_ms'] / times['live_held_ms']:.0%} of its bound "
-        f"held; sector floor {shape['live_sector_floor_ms']:.4f} ms")
+    times, errs, bds, shape = dist_supersteps(fasta, min_ovl)
+    route, chk = bds["route"], bds["check"]
+    say(f"dist: K1 at the dist shape, shard 0's grid of the first -rma "
+        f"superstep: P = {shape['P']}, Wp = {shape['Wp']}, hit_cap "
+        f"{shape['hit_cap']}, {shape['live_P']} live lanes "
+        f"({shape['edge_windows']} edge and {shape['containment_windows']} "
+        "containment windows); the rows route == its plain version == the "
+        "column route == the live-lane launch == every design, "
+        "and it ran with host synchronisation made an error")
+    say(f"dist: the route's work (PERF.md section 2): {route['bytes']} B, "
+        f"bound {route['bound_ms']:.4f} ms ({route['bound_by']}), row-layout "
+        f"sector floor {route['sector_floor_ms']:.4f} ms, whole-sector floor "
+        f"{route['whole_sector_floor_ms']:.4f} ms; the check alone on the "
+        f"live list {chk['bytes']} B, bound {chk['bound_ms']:.4f} ms, sector "
+        f"floor {chk['sector_floor_ms']:.4f} ms, whole-sector floor "
+        f"{chk['whole_sector_floor_ms']:.4f} ms")
+    what = {"column_route": "the column route (expand, gathers, transposes, "
+                      "column kernel)",
+            "route": "the rows route (one launch: compaction, check, "
+                     "flags)",
+            "compact": "the two-kernel designs' compaction alone",
+            "column": "the column kernel alone on the transposed gathers",
+            "live": "the column kernel on the live lanes' columns alone"}
+    for k, (ms, held) in times.items():
+        if k == "plain":
+            continue
+        ref = chk if k.startswith("check_") else route
+        if k.startswith("check_"):
+            what[k] = f"design {k[6:]}'s check alone on the live list"
+        say(f"dist: {what.get(k, f'design {k} of the rows route')}: "
+            f"{ms:.4f} ms, held {held:.4f} ms; "
+            f"{ref['bound_ms'] / held:.0%} of its bound, "
+            f"{ref['sector_floor_ms'] / held:.0%} of its sector floor, "
+            f"{ref['whole_sector_floor_ms'] / held:.0%} of its whole-sector "
+            "floor")
+    say(f"dist: the rows route's plain version {times['plain'][0]:.4f} ms")
     say(f"dist: card {card_line()}")
-    return launches, {"dist_ms": times["ms"], "dist_held_ms": times["held_ms"],
-                      "dist_plain_ms": times["plain_ms"],
-                      "dist_max_abs_err": err, "dist_bytes": bd["bytes"],
-                      "dist_bound_ms": bd["bound_ms"], "dist_P": shape["P"],
-                      "dist_live_ms": times["live_ms"],
-                      "dist_live_held_ms": times["live_held_ms"],
-                      "dist_live_plain_ms": times["live_plain_ms"],
-                      "dist_live_max_abs_err": shape["live_max_abs_err"],
-                      "dist_live_bytes": shape["live_bytes"],
-                      "dist_live_bound_ms": shape["live_bound_ms"],
-                      "dist_live_P": shape["live_P"],
-                      "dist_sector_floor_ms": shape["sector_floor_ms"],
-                      "dist_live_sector_floor_ms":
-                          shape["live_sector_floor_ms"]}
+    d_k1 = {"dist_rows_ms": times["route"][0],
+            "dist_rows_held_ms": times["route"][1],
+            "dist_rows_plain_ms": times["plain"][0],
+            "dist_rows_max_abs_err": errs["rows"],
+            "dist_rows_bytes": route["bytes"],
+            "dist_rows_bound_ms": route["bound_ms"],
+            "dist_rows_sector_floor_ms": route["sector_floor_ms"],
+            "dist_rows_whole_sector_floor_ms":
+                route["whole_sector_floor_ms"],
+            "dist_rows_live_P": shape["live_P"], "dist_P": shape["P"],
+            "dist_rows_launches": launches["K1_rows"],
+            "dist_rows_check_held_ms": times["check_scalar"][1],
+            "dist_rows_check_bound_ms": chk["bound_ms"],
+            "dist_rows_check_sector_floor_ms": chk["sector_floor_ms"],
+            "dist_column_route_ms": times["column_route"][0],
+            "dist_column_route_held_ms": times["column_route"][1],
+            "dist_ms": times["column"][0], "dist_held_ms": times["column"][1],
+            "dist_live_ms": times["live"][0],
+            "dist_live_held_ms": times["live"][1],
+            "dist_live_max_abs_err": errs["live"]}
+    d_k1.update({f"dist_rows_{k}_held_ms": times[k][1]
+                 for k in (*k1d.DESIGNS, *(
+                     "check_" + d for d in k1d.LISTED))
+                 if k in times})
+    d_k1["dist_rows_compact_held_ms"] = times["compact"][1]
+    return launches, d_k1
 
 
 # ---------------------------------------------------------------------------
@@ -2159,6 +2349,7 @@ def main(argv=None) -> int:
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.overlap.relation import _device_relation
+    from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
     from disco_tpu_torch.tools import exp_mxu_fetch as mf
 
     walls = StageWalls()
@@ -2173,9 +2364,10 @@ def main(argv=None) -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
             ("dual_compare.cu (nvcc, sm_90a)", fk.load),
+            ("k1_rows_designs.cu (nvcc, sm_90a)", k1d.load),
             ("window_compare.cu (nvcc, sm_90a)", fk.load_window),
             ("window_staged.cu (nvcc, sm_90a)", fk.load_staged),
             ("host libraries (g++)", native.build_all))}
@@ -2191,6 +2383,9 @@ def main(argv=None) -> int:
 
     tile = "one block of 256 threads a 1024-pair tile"
     shapes = {  # at the main path's widths: Wp = 17, fused_mxu's Wb = 32
+        "dual_compare_rows_fused_kernel": (
+            "K1's rows route", "16 lanes a thread, a 4096-lane tile a block "
+            "of 256 threads (of its two instances, the last ptxas lists)"),
         "window_compare_kernel": ("K3", ring(fk.tiled_shape(17, 0, 1 << 22))),
         "window_compare_fetch_kernel": ("K4, T2", ring(
             fk.tiled_shape(32, 32, 1 << 22))),
@@ -2294,15 +2489,16 @@ def main(argv=None) -> int:
         say(f"slice: peak device memory {peak / 2**20:.1f} MiB")
 
         # ---- 6. the device engine with its K1 check ----------------------
-        fk.fused_compare_dual.launches = 0
+        fk.fused_compare_dual_rows.launches = 0
         t0 = time.perf_counter()
         rel_k1 = _device_relation(store, table, device=DEVICE, fetch=False)
         torch.cuda.synchronize()
         t_k1 = time.perf_counter() - t0
-        check(fk.fused_compare_dual.launches > 0,
-              "the device engine's K1 check never launched K1")
+        k1_rows = fk.fused_compare_dual_rows.launches
+        check(k1_rows > 0,
+              "the device engine's K1 check never launched K1's rows route")
         check_same_relation(rel_k1, rel_dev, "K1 engine", "device")
-        say(f"engine: K1 check (fetch=False) {fk.fused_compare_dual.launches} "
+        say(f"engine: K1 check (fetch=False, the rows route) {k1_rows} "
             f"launches, relation == K2 relation ({len(rel_dev)} rows) in "
             f"{t_k1:.2f} s; fallback chunks "
             f"{rel_k1.stats['fallback_chunks']} of {rel_k1.stats['chunks']}")

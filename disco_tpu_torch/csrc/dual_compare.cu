@@ -1,6 +1,6 @@
 // Dual window check (edge + containment) for candidate read pairs, for
-// NVIDIA Hopper (compiled for sm_90a).  Two kernels, one per TPU kernel
-// they replace:
+// NVIDIA Hopper (compiled for sm_90a).  Three routes, each replacing the
+// TPU kernel named beside it:
 //
 //   dual_compare        <- disco_tpu/overlap/fused_kernel.py::fused_compare_dual
 //                          (Pallas body _dual_kernel): both rows arrive as
@@ -10,6 +10,10 @@
 //                          fetched inside the kernel from the row-major
 //                          (2N, Wp) packed table; read2's row arrives as
 //                          (Wb, P) columns, Wb >= Wp.
+//   dual_compare_rows   <- fused_compare_dual again (K1), for the pair
+//                          (table1[rows1[p]], table2[rows2[p]]): both rows
+//                          read by index from row-major (R, Wp) tables, on
+//                          the live lanes of a sparse grid only (below).
 //
 // For pair p:
 //   edge_ok[p] = a[e_o1 : e_o1 + e_n] == b[e_o2 : e_o2 + e_n]
@@ -41,11 +45,43 @@
 //     row of zeros.  Staging a sorted tile's rows in shared memory is left
 //     for later.
 //
+// dual_compare_rows is K1 for the distributed build's (Q, H) candidate
+// grid (dist/overlap_shard.py), where a slot is kept for each of hit_cap
+// candidates of every window and some 4% of the lanes carry a window to
+// compare.  What bounds it is bytes: every lane's two lengths (8 B) read
+// and two flags (2 B) written, and for a live lane only its two row
+// indices, the offsets of its windows and the words they span.  Through
+// the column kernel each live word cost a whole 32-B sector and the
+// caller gathered and transposed two (P, Wp) blocks first.  The design
+// kept (dual_rows.cuh, dual_compare_rows_fused_kernel):
+//   - one launch, a block a tile of 4096 lanes; each warp reads its 512
+//     lanes' e_n and c_n by 16-B loads, one contiguous 512 B a load;
+//   - the block lists its live lanes in shared memory (a warp scan of
+//     counts packed four to an int, no atomics), so the host never waits
+//     for a count, the caller's pipeline of chunks is not stalled, and the
+//     output is the same every run;
+//   - one thread a live lane reads its rows by index straight from the
+//     tables, with no gathered, expanded or transposed block: the H
+//     candidates of a window share read1's row, and neighbouring lanes
+//     neighbouring rows, so L1 and L2 serve the repeats.  It loads only
+//     the offsets of the windows that have a length, all at once, and
+//     each row's words eight at a time, so a window of up to 128 bases
+//     waits on one round trip to memory;
+//   - the tile's flags are built in shared memory (true for a dead lane,
+//     as n = 0 gives them) and leave by 16-B stores: a live lane's flags
+//     are never written to device memory alone.
+// A row index outside its table reads as a row of zeros; a word past the
+// row reads as 0 and is never taken from the next row, which follows it in
+// memory.  What still holds it back is the scattered sectors of the live
+// lanes' indices and offsets, one each, beside their 4 bytes (PERF.md).
+// The designs timed against it in turns are in k1_rows_designs.cu.
+//
 // Each launcher is a plain C function: it launches on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dual_rows.cuh"
 #include "window.cuh"
 
 namespace {
@@ -129,6 +165,23 @@ int disco_dual_compare_fetch(const void* table, int64_t n_rows, int wp,
       static_cast<const int32_t*>(c_n), static_cast<uint8_t*>(edge_ok),
       static_cast<uint8_t*>(cont_ok));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 over row-major tables (dual_rows.cuh): the kept design, kFused,
+// loading each row's words eight at a time.
+int disco_dual_compare_rows(const void* table1, int64_t n1,
+                            const void* table2, int64_t n2, int wp,
+                            const void* rows1, const void* rows2, int64_t P,
+                            const void* e_o1, const void* e_o2,
+                            const void* e_n, const void* c_o1,
+                            const void* c_n, void* edge_ok, void* cont_ok,
+                            void* stream) {
+  if (P <= 0) return 0;
+  if (P > INT32_MAX || wp < 0) return cudaErrorInvalidValue;
+  return static_cast<int>(disco::rows::launch_fused<8>(
+      disco::rows::make_args(table1, n1, table2, n2, wp, rows1, rows2, e_o1,
+                             e_o2, e_n, c_o1, c_n, edge_ok, cont_ok),
+      P, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

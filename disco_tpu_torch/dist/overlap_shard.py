@@ -21,9 +21,10 @@ collectives is a function of one shard's tensors, and the collectives are
 functions over the list of shards' tensors.  Everything has a fixed
 shape: queries are binned into per-peer blocks of `route_cap` slots
 (overflow is counted, and dist.builder re-runs such a chunk exactly), hits
-are capped at `hit_cap` a query.  Each shard's verification is K1 (the
-`fused_compare_dual` wrapper: the CUDA kernel on a card, its plain version
-on the CPU).
+are capped at `hit_cap` a query.  Each shard's verification is K1's rows
+route (the `fused_compare_dual_rows` wrapper: on a card, a compaction of
+the grid's live lanes and a check that reads both rows by index, with no
+host synchronisation; on the CPU its plain version).
 
 Keys are uint64 on the host and int64 with the sign bit flipped on the
 devices (`overlap.device.flip_keys`): torch has no uint64 `%` or

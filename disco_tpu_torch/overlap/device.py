@@ -14,7 +14,9 @@ dense path).
   flattened into a (cand_cap,) list by an inverse searchsorted over the
   per-window prefix sums, and only those pairs are checked.
 - The check is the K2 kernel (`fused_kernel.fused_compare_dual_fetch`) when
-  a packed table is given, else the K1 route (`_dual_check`).
+  a packed table is given, else K1's rows route
+  (`fused_kernel.fused_compare_dual_rows`), which reads both rows by index
+  from packed_all on the live lanes only.
 - Verified hits are compacted to 4-byte (`device_overlap_dense32`) or
   8-byte (`device_overlap_dense`) wire rows in window order.
 
@@ -23,7 +25,8 @@ count is read back to the host inside them."""
 import numpy as np
 import torch
 
-from .fused_kernel import fused_compare_dual, fused_compare_dual_fetch
+from .fused_kernel import (fused_compare_dual, fused_compare_dual_fetch,
+                           fused_compare_dual_rows)
 from .relation import _default_device
 from .verify import as_words, make_packed_all
 
@@ -80,8 +83,10 @@ def candidate_checks(packed_all, lengths, qread, qj, r2, orient, valid, *,
 
     With `packed_table` (packed_all itself) the check is the K2 kernel,
     which fetches read1's rows from the table; candidates arrive sorted by
-    read1 (window-scan order).  Without it, both rows are gathered and
-    checked by `_dual_check` (K1)."""
+    read1 (window-scan order).  Without it, K1's rows route reads both
+    rows from packed_all by index (`fused_compare_dual_rows`): the
+    replicated superstep's check (dist/overlap_shard.py) and the device
+    engine's with fetch=False."""
     qread = qread.to(torch.int64)
     rows2, geo, e_valid, c_valid = candidate_geometry(
         lengths, qread, qj, r2.to(torch.int64), orient, valid, k=k)
@@ -90,8 +95,9 @@ def candidate_checks(packed_all, lengths, qread, qj, r2, orient, valid, *,
         edge_ok, cont_ok = fused_compare_dual_fetch(
             packed_table, b, qread.to(torch.int32), *geo)
     else:
-        edge_ok, cont_ok = _dual_check(packed_all[qread], packed_all[rows2],
-                                       *geo)
+        edge_ok, cont_ok = fused_compare_dual_rows(
+            packed_all, qread.to(torch.int32), packed_all,
+            rows2.to(torch.int32), *geo)
     return edge_ok & e_valid, cont_ok & c_valid
 
 
@@ -104,23 +110,28 @@ def candidate_checks_rows(rows1, rows2, lengths, qread, qj, r2, orient,
     superstep's check (dist/overlap_shard.py), where the read payload is
     partitioned over the shards (reference's RMA fetch:
     src/BuildGraphMPIRMA/src/HashTable.cpp:665-708).  The geometry is
-    `candidate_geometry`'s over the flattened grid; the check is K1 through
-    `_dual_check`.  Returns (edge_ok, cont_ok), (Q, H) bool."""
+    `candidate_geometry`'s over the flattened grid; the check is K1's rows
+    route, lane p pairing rows1[p // H] with row p of rows2: no block is
+    expanded or transposed.  Returns (edge_ok, cont_ok), (Q, H) bool."""
     q, h = r2.shape
     wp = rows1.shape[-1]
     _, geo, e_valid, c_valid = candidate_geometry(
         lengths, qread.to(torch.int64).repeat_interleave(h),
         qj.to(torch.int32).repeat_interleave(h), r2.reshape(-1).to(torch.int64),
         orient.reshape(-1), valid.reshape(-1), k=k)
-    blk1 = rows1[:, None, :].expand(q, h, wp).reshape(-1, wp)
-    edge_ok, cont_ok = _dual_check(blk1, rows2.reshape(-1, wp), *geo)
+    # made each call: held across calls they would add 8 B a lane to the
+    # superstep's peak device memory, which the check itself never sets
+    lane = torch.arange(q * h, dtype=torch.int32, device=rows1.device)
+    edge_ok, cont_ok = fused_compare_dual_rows(
+        rows1, lane // h, rows2.reshape(-1, wp), lane, *geo)
     return ((edge_ok & e_valid).reshape(q, h),
             (cont_ok & c_valid).reshape(q, h))
 
 
 def _dual_check(blk1, blk2, e_o1, e_o2, e_n, c_o1, c_n):
     """Edge + containment window compares over gathered (P, Wp) row
-    blocks: the K1 wrapper over their columns."""
+    blocks: the K1 wrapper over their columns (relation._xla_rows: the xla
+    backend and the exact re-run of an overflowing chunk)."""
     return fused_compare_dual(blk1.T.contiguous(), blk2.T.contiguous(),
                               e_o1, e_o2, e_n, c_o1, c_n)
 
@@ -277,8 +288,9 @@ class DeviceOverlapEngine:
     over window chunks.
 
     `fetch` selects the check: True runs K2, which reads read1's rows from
-    packed_all; False runs K1 over gathered columns.  `stats` counts
-    chunks; the caller adds the chunks it re-ran by an exact path."""
+    packed_all; False runs K1's rows route, which reads both rows from
+    packed_all by index.  `stats` counts chunks; the caller adds the
+    chunks it re-ran by an exact path."""
 
     def __init__(self, store, table, device=None, fetch: bool = True):
         self.store = store

@@ -11,8 +11,14 @@ The dual check (edge + containment), in csrc/dual_compare.cu:
   columns with Wb >= Wp.  The TPU's 128-lane line packing and one-hot MXU
   row expansion are TPU layout; a Hopper thread loads its row directly, so
   there is no span precondition and no fallback.
+- `fused_compare_dual_rows` (K1's rows route, for the distributed build's
+  sparse (Q, H) grid): both rows read by index from row-major (R, Wp)
+  tables, on the live lanes only: one launch in which each block lists
+  its tile's lanes with a window to compare in shared memory and checks
+  them, so no count reaches the host.  The designs timed against it are
+  `tools/exp_k1_rows_designs.py`'s (csrc/k1_rows_designs.cu), on no path.
 
-Both return (edge_ok, cont_ok) bool (P,):
+All three return (edge_ok, cont_ok) bool (P,):
 edge_ok = a@e_o1 == b@e_o2 over e_n bases, cont_ok = a@c_o1 == b@0 over c_n
 bases, a length of 0 giving True.
 
@@ -82,6 +88,12 @@ W_CMP = 24        # words K5 compares of each 32-word row
 BOTH_ROWS = (192, 384)   # K5's staged rows per tile: read1, read2
 MAX_COLUMN_WORDS = 256   # widest column input of K3's and K4's kernels
 
+# the rows route's arguments up to the stream (csrc/dual_rows.cuh):
+# table1, n1, table2, n2, wp, rows1, rows2, P, geometry, edge_ok, cont_ok
+ROWS_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64] * 2 +
+                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int64] + [ctypes.c_void_p] * 7)
+
 _LIB = None
 _WINDOW_LIB = None
 _STAGED_LIB = None
@@ -92,13 +104,16 @@ def load():
     library."""
     global _LIB
     if _LIB is None:
-        lib = kernels.load_cuda("dual_compare", deps=["window.cuh"])
+        lib = kernels.load_cuda("dual_compare",
+                                deps=["window.cuh", "dual_rows.cuh"])
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.disco_dual_compare.argtypes = [vp, vp, i32, i64] + [vp] * 8
         lib.disco_dual_compare.restype = ctypes.c_int
         lib.disco_dual_compare_fetch.argtypes = (
             [vp, i64, i32, vp, i32, vp, i64] + [vp] * 8)
         lib.disco_dual_compare_fetch.restype = ctypes.c_int
+        lib.disco_dual_compare_rows.argtypes = ROWS_ARGTYPES + [vp]
+        lib.disco_dual_compare_rows.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -232,6 +247,24 @@ def fused_compare_dual_fetch_plain(table, b, rows1, e_o1, e_o2, e_n, c_o1,
                             c_o1, c_n)
 
 
+def table_rows(table, rows):
+    """table[rows] over a row-major (R, Wp) table, a row index outside the
+    table giving a row of zeros (csrc/window.cuh table_row)."""
+    r = rows.long()
+    n_rows = table.shape[0]
+    padded = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    return padded[torch.where((r >= 0) & (r < n_rows), r, n_rows)]
+
+
+def fused_compare_dual_rows_plain(table1, rows1, table2, rows2, e_o1, e_o2,
+                                  e_n, c_o1, c_n):
+    """Plain version of `fused_compare_dual_rows`: the dual check over the
+    gathered pairs (table1[rows1[p]], table2[rows2[p]])."""
+    return dual_check_plain(table_rows(table1, rows1),
+                            table_rows(table2, rows2), e_o1, e_o2, e_n,
+                            c_o1, c_n)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -323,6 +356,55 @@ def fused_compare_dual_fetch(table, b, rows1, e_o1, e_o2, e_n, c_o1, c_n):
 
 
 fused_compare_dual_fetch.launches = 0
+
+def _rows_inputs(table1, rows1, table2, rows2, geo):
+    if table1.dim() != 2 or table2.dim() != 2 or \
+            table1.shape[1] != table2.shape[1]:
+        raise ValueError(f"tables {tuple(table1.shape)} and "
+                         f"{tuple(table2.shape)}: need (R1, Wp), (R2, Wp)")
+    p = rows1.shape[0]
+    if rows1.shape != (p,) or rows2.shape != (p,):
+        raise ValueError(f"rows1 {tuple(rows1.shape)} and rows2 "
+                         f"{tuple(rows2.shape)} must be equal (P,) vectors")
+    return p, _check((table1, table2, rows1, rows2), geo, p)
+
+
+def _rows_args(table1, rows1, table2, rows2, geo, out):
+    """The rows route's C arguments up to the stream (ROWS_ARGTYPES)."""
+    return (table1.data_ptr(), table1.shape[0], table2.data_ptr(),
+            table2.shape[0], table1.shape[1], rows1.data_ptr(),
+            rows2.data_ptr(), rows1.shape[0], *(g.data_ptr() for g in geo),
+            *(o.data_ptr() for o in out))
+
+
+def fused_compare_dual_rows(table1, rows1, table2, rows2, e_o1, e_o2, e_n,
+                            c_o1, c_n):
+    """K1 over row-major tables: table1 (R1, Wp) and table2 (R2, Wp) int32;
+    rows1, rows2 (P,) int32 row indices (outside the table: a row of
+    zeros); e_*/c_*: (P,) int32 window geometry.  Checks the pair
+    (table1[rows1[p]], table2[rows2[p]]) on the live lanes (e_n > 0 or
+    c_n > 0) only, with no host synchronisation; a dead lane gives True.
+    Returns (edge_ok, cont_ok) bool (P,).  One launch lists each tile's
+    live lanes in shared memory and checks them (csrc/dual_rows.cuh)."""
+    geo = (e_o1, e_o2, e_n, c_o1, c_n)
+    p, dev = _rows_inputs(table1, rows1, table2, rows2, geo)
+    if dev.type == "cpu":
+        return fused_compare_dual_rows_plain(table1, rows1, table2, rows2,
+                                             *geo)
+    out = _outputs(p, dev)
+    if p == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = load().disco_dual_compare_rows(
+            *_rows_args(table1, rows1, table2, rows2, geo, out), _stream(dev))
+    _raise_on(err, "dual_compare_rows")
+    fused_compare_dual_rows.launches += 1
+    return out
+
+
+fused_compare_dual_rows.launches = 0
+
+
 
 
 # ---------------------------------------------------------------------------

@@ -276,7 +276,7 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
 
     `rbits` widens the 4-byte row's read field (more escapes; it is never
     narrower than the read ids need).  `fetch` picks the check: K2 (True)
-    or K1.  Displaces the reference's hot loop
+    or K1's rows route.  Displaces the reference's hot loop
     (src/BuildGraph/src/OverlapGraph.cpp:631-674)."""
     from .device import DeviceOverlapEngine
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, K2, K3,
+"""The CUDA kernels of disco_tpu_torch (overlap/fused_kernel.py: K1, its
+rows route and that route's designs, K2, K3,
 K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
@@ -24,6 +25,7 @@ from disco_tpu_torch.overlap import fused_kernel as port
 from disco_tpu_torch.overlap import pallas_kernel
 from disco_tpu_torch.overlap.verify import align_window, as_words
 from disco_tpu_torch.tools import exp_fetch_variants as fv
+from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
 from disco_tpu_torch.tools import exp_mxu_fetch as mf
 
 READ_LEN = 250
@@ -791,6 +793,162 @@ def test_wide_columns_launch_the_direct_kernel(cuda_device, w):
 
 
 # ---------------------------------------------------------------------------
+# K1's rows route (fused_compare_dual_rows): rows read by index
+# ---------------------------------------------------------------------------
+def _rows_inputs(seed, p, wp, live="random", tables="two"):
+    """Random row-major tables of `wp` words (every word nonzero-ish, so a
+    read past a row would see the next row's first word) and window
+    geometry reaching up to the row's last word (the one-past word then
+    lies past the row: the kernel reads 0 there).  Each table carries 3
+    rows fewer than the indices address, so some indices fall outside it;
+    a quarter of the pairs compare a row with itself.  `live`: "random"
+    (a third of the windows n = 0), "dead", "all" or "single".  Returns
+    numpy (table1, rows1, table2, rows2, geo)."""
+    rng = np.random.default_rng(seed)
+    n1, n2 = 64, 96
+    table1 = rng.integers(-2**31, 2**31, (n1, wp)).astype(np.int32)
+    table2 = (table1 if tables == "one" else
+              rng.integers(-2**31, 2**31, (n2, wp)).astype(np.int32))
+    rows1 = np.sort(rng.integers(-1, len(table1) + 3, p))   # runs, repeats
+    rows2 = rng.integers(-1, len(table2) + 3, p)
+    bases = 16 * wp
+    e_o1, e_o2, c_o1 = (rng.integers(0, bases, p) for _ in range(3))
+    e_n = rng.integers(1, bases + 1, p) % (bases - np.maximum(e_o1, e_o2) + 1)
+    c_n = rng.integers(1, bases + 1, p) % (bases - c_o1 + 1)
+    same = (np.arange(p) % 4 == 0) & (tables == "one")
+    rows2 = np.where(same, rows1, rows2)
+    e_o2 = np.where(same, e_o1, e_o2)
+    if live == "random":
+        e_n[rng.random(p) < 1 / 3] = 0
+        c_n[rng.random(p) < 1 / 3] = 0
+    elif live == "dead":
+        e_n[:] = 0
+        c_n[:] = 0
+    elif live == "all":
+        e_n = np.maximum(e_n, 1)
+        e_o1 = np.minimum(e_o1, bases - e_n)
+        e_o2 = np.minimum(e_o2, bases - e_n)
+    elif live == "single":
+        keep = rng.integers(0, p)
+        e_n[np.arange(p) != keep] = 0
+        c_n[:] = 0
+    geo = tuple(np.asarray(g, np.int32) for g in (e_o1, e_o2, e_n, c_o1,
+                                                   c_n))
+    return table1, rows1, table2, rows2, geo
+
+
+def _rows_plain(table1, rows1, table2, rows2, geo):
+    """The plain version (run on the card, brought back) over the rows
+    padded with two zero words, which is what the kernel reads past a
+    row."""
+    def dev(x):
+        return _t(x).cuda()
+
+    def pad(t):
+        return dev(np.pad(t, ((0, 0), (0, 2))))
+    want = port.fused_compare_dual_rows_plain(
+        pad(table1), dev(rows1), pad(table2), dev(rows2),
+        *(dev(g) for g in geo))
+    return tuple(w.cpu() for w in want)
+
+
+def _rows_on_card(fn, table1, rows1, table2, rows2, geo):
+    dev = [_t(x).cuda() for x in (table1, rows1, table2, rows2, *geo)]
+    return fn(*dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 255, 3001, (1 << 20) + 3])
+@pytest.mark.parametrize("wp", [1, 2, 17, 32, 257])
+def test_rows_kernel_matches_plain(cuda_device, wp, p):
+    """The rows route against its plain version at every width and size,
+    two tables of different lengths and one table passed twice, indices
+    repeated and outside the tables, windows up to the row's last word:
+    exact, one launch counted, and no host synchronisation."""
+    for tables in ("two", "one"):
+        inputs = _rows_inputs(wp * 7 + p, p, wp, tables=tables)
+        want = _rows_plain(*inputs)
+        dev = [_t(x).cuda() for x in (inputs[0], inputs[1], inputs[2],
+                                      inputs[3], *inputs[4])]
+        torch.cuda.synchronize()
+        before = port.fused_compare_dual_rows.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = port.fused_compare_dual_rows(*dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert port.fused_compare_dual_rows.launches == before + 1
+        _assert_same(want, got)
+        if p > 255:
+            assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", ["dead", "all", "single"])
+def test_rows_kernel_on_dead_live_and_single_grids(cuda_device, live):
+    """All lanes dead (every flag True), all live, and one live lane of
+    3001, against the plain version, with the kept design and the others
+    (tools/exp_k1_rows_designs.py)."""
+    inputs = _rows_inputs(11, 3001, 17, live=live, tables="one")
+    want = _rows_plain(*inputs)
+    if live == "dead":
+        assert want[0].all() and want[1].all()
+    _assert_same(want, _rows_on_card(port.fused_compare_dual_rows, *inputs))
+    for name in k1d.DESIGNS:
+        _assert_same(want, _rows_on_card(
+            lambda *a: k1d.design(name, "route", *a), *inputs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp", [17, 32])
+def test_rows_designs_and_stages_match_plain(cuda_device, wp):
+    """Every design of the rows route, and the compaction then the check
+    launched apart, equal the plain version on tables viewed at a one-word
+    offset (rows not 16-B aligned); the designs count under their own
+    wrapper, not the path's."""
+    table1, rows1, table2, rows2, geo = _rows_inputs(5, 100_003, wp)
+    want = _rows_plain(table1, rows1, table2, rows2, geo)
+
+    def offset(t):
+        buf = torch.zeros(t.size + 1, dtype=torch.int32, device=cuda_device)
+        buf[1:] = _t(t).reshape(-1).cuda()
+        return buf[1:].view(t.shape)
+    args = (offset(table1), _t(rows1).cuda(), offset(table2),
+            _t(rows2).cuda(), *(_t(g).cuda() for g in geo))
+    path = port.fused_compare_dual_rows.launches
+    for name in k1d.DESIGNS:
+        _assert_same(want, k1d.design(name, "route", *args))
+    p = len(rows1)
+    out = (torch.empty(p, dtype=torch.bool, device=cuda_device),
+           torch.empty(p, dtype=torch.bool, device=cuda_device))
+    scratch = (torch.empty(p, dtype=torch.int32, device=cuda_device),
+               torch.empty(1, dtype=torch.int32, device=cuda_device))
+    live = (_t(geo[2]) > 0) | (_t(geo[4]) > 0)
+    for name in k1d.LISTED:
+        for o in out:
+            o.zero_()
+        k1d.design("scalar", "compact", *args, out=out, scratch=scratch)
+        torch.cuda.synchronize()
+        assert int(scratch[1]) == int(live.sum())
+        ids = torch.sort(scratch[0][:int(scratch[1])].cpu()).values
+        assert torch.equal(ids, torch.nonzero(live).squeeze(1).int())
+        k1d.design(name, "check", *args, out=out, scratch=scratch)
+        _assert_same(want, out)
+    _assert_same(want, port.fused_compare_dual_rows(*args))
+    assert port.fused_compare_dual_rows.launches == path + 1
+
+
+@pytest.mark.cuda
+def test_rows_kernel_on_empty_grid(cuda_device):
+    inputs = _rows_inputs(3, 0, 17)
+    before = port.fused_compare_dual_rows.launches
+    got = _rows_on_card(port.fused_compare_dual_rows, *inputs)
+    assert [g.shape for g in got] == [(0,), (0,)]
+    assert port.fused_compare_dual_rows.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the distributed buildG (dist/): four shards on the card
 # ---------------------------------------------------------------------------
 MINI = pathlib.Path(__file__).resolve().parent / "golden" / "mini"
@@ -808,9 +966,10 @@ def _mini_state():
                                                           "dist_mem"])
 def test_dist_engines_on_the_card_match_cpu_shards(cuda_device, dist_mem):
     """One superstep of both engines at n = 4, the shards on the card (K1's
-    kernel) against the same engine on four CPU shards (K1's plain
+    rows route) against the same engine on four CPU shards (its plain
     version), on two chunks of mini with a tenth of the reads marked: every
-    grid, the overflows and the unions equal; K1 launched once a shard."""
+    grid, the overflows and the unions equal; the rows route launched once
+    a shard, the column kernel never."""
     from disco_tpu_torch.dist import overlap_shard as shard
     from disco_tpu_torch.dist.mesh import make_mesh
     from disco_tpu_torch.overlap.relation import window_codes
@@ -832,10 +991,12 @@ def test_dist_engines_on_the_card_match_cpu_shards(cuda_device, dist_mem):
         marked = (rng.random(store.n_reads) < 0.1).astype(np.int32)
         args = (qread[s:s + chunk], qj[s:s + chunk], qcode[s:s + chunk],
                 marked)
-        before = port.fused_compare_dual.launches
+        before = port.fused_compare_dual_rows.launches
+        columns = port.fused_compare_dual.launches
         got = shard.gather(steps[0](*args))
         torch.cuda.synchronize()
-        assert port.fused_compare_dual.launches == before + 4
+        assert port.fused_compare_dual_rows.launches == before + 4
+        assert port.fused_compare_dual.launches == columns
         want = shard.gather(steps[1](*args))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)

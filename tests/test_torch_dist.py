@@ -208,6 +208,58 @@ def test_superstep_grids_match_jax(mini, n, dist_mem, case):
     assert edge and (cont or case == "overflow")
 
 
+@pytest.mark.parametrize("dist_mem", [False, True], ids=["replicated",
+                                                          "dist_mem"])
+def test_supersteps_check_through_the_rows_route(mini, dist_mem,
+                                                 monkeypatch):
+    """Both supersteps verify through K1's rows route, once a shard and at
+    the grid's size, and never reach the gathered-column route: with
+    `_dual_check` and the column wrapper made to raise, one superstep of
+    mini at n = 4 still gives disco_tpu's grids."""
+    from disco_tpu_torch.overlap import device as dv
+
+    def columns(*a, **kw):
+        raise AssertionError("a superstep reached the column route")
+
+    real = dv.fused_compare_dual_rows
+    sizes = []
+
+    def rows(*a):
+        sizes.append(len(a[1]))
+        return real(*a)
+
+    monkeypatch.setattr(dv, "_dual_check", columns)
+    monkeypatch.setattr(dv, "fused_compare_dual", columns)
+    monkeypatch.setattr(dv, "fused_compare_dual_rows", rows)
+    (store, table), (pstore, ptable) = mini
+    n, chunk = 4, 2048
+    kw = dict(hit_cap=4, route_cap=512, prune_marked=True)
+    lengths = np.asarray(store.lengths, np.int32)
+    if dist_mem:
+        jeng = jshard.DistMemOverlapEngine.build(store, table, _jax_mesh(n),
+                                                 **kw)
+        jstep, payload = jeng.make_step(store, q_chunk=chunk)
+        step, _ = tshard.DistMemOverlapEngine.build(
+            pstore, ptable, _cpu_mesh(n), **kw).make_step(pstore,
+                                                          q_chunk=chunk)
+        want_args = (*payload, lengths)
+    else:
+        jstep = jshard.ShardedOverlapEngine.build(
+            store, table, _jax_mesh(n), **kw).make_step()
+        step = tshard.ShardedOverlapEngine.build(
+            pstore, ptable, _cpu_mesh(n), **kw).make_step(pstore)
+        want_args = (jax_packed_all(store.packed, store.packed_rc), lengths)
+    qread, qj, qcode = window_codes(store, table.k)
+    marked = np.zeros(store.n_reads + (-store.n_reads) % n, np.int32)
+    args = (qread[:chunk], qj[:chunk], qcode[:chunk], marked)
+    got = tshard.gather(step(*args))
+    want = [np.asarray(x) for x in jstep(*want_args, *args)]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert sizes == [chunk // n * kw["hit_cap"]] * n
+    assert got[3].any() and got[5].sum() == 0
+
+
 def test_sharded_superstep_matches_host_relation(mini):
     """tests/test_dist_overlap.py's check over one chunk of mini at n = 8,
     hit_cap 32 and route_cap 2^16: no overflow, and the step's edge hits
@@ -582,6 +634,15 @@ def test_bench_scaling_model_matches_jax_tool():
     assert hit_cap == counts.max() and chunk % 4 == 0
     assert chunk * hit_cap <= (1 << 12) + 4 * hit_cap
     assert route_cap == builder._default_route_cap(chunk, 4)
+
+
+def test_dist_walls_raises_without_a_card(monkeypatch):
+    """tools/dist_walls.py measures a card: without one it raises before
+    it reads anything."""
+    from disco_tpu_torch.tools import dist_walls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        dist_walls.main(["--fasta", "missing.fasta"])
 
 
 def test_bench_scaling_raises_without_a_card():

@@ -11,6 +11,7 @@ from disco_tpu.io.readstore import ReadStore
 from disco_tpu.overlap import fused_kernel as ref
 from disco_tpu_torch.overlap import fused_kernel as port
 from disco_tpu_torch.overlap.verify import as_words
+from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
 from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
@@ -125,6 +126,93 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         port.fused_compare_dual_fetch(as_words(packed_all), cols,
                                       _t(rows2[:10]), *g)
+
+
+def _rows_case(seed, p, tables, n_reads=200):
+    """K1's rows route inputs: one table of reads (100 bp; forward over rc)
+    passed twice, or that table and a second of other reads with its own
+    length; rows1 in sorted runs with repeats, both index vectors reaching
+    two rows past either end of their table; a third of the windows ending
+    at the read's last base, so that they read the row's last word (the
+    zero pad word; the next row, right after it, is nonzero)."""
+    rng, store, table1, _, geo = _fixture(seed, p, n_reads)
+    if tables == "two":
+        _, other, _, _, _ = _fixture(seed + 1, 1, n_reads // 2)
+        table2 = np.concatenate([other.packed, other.packed_rc])
+    else:
+        table2 = table1
+    rows1 = np.sort(rng.integers(-2, len(table1) + 2, p)).astype(np.int32)
+    rows2 = rng.integers(-2, len(table2) + 2, p).astype(np.int32)
+    e_o1, e_o2, e_n, c_o1, c_n = (g.copy() for g in geo)
+    ends = np.arange(p) % 3 == 1
+    e_o1[ends] = 100 - e_n[ends]            # a's edge window ends the read
+    e_o2[ends] = 100 - e_n[ends]            # and b's
+    c_o1[ends] = 100 - c_n[ends]
+    return table1, rows1, table2, rows2, (e_o1, e_o2, e_n, c_o1, c_n)
+
+
+def _gathered(table, rows):
+    """table[rows] with a row of zeros for an index outside the table."""
+    inside = (rows >= 0) & (rows < len(table))
+    padded = np.concatenate([table, np.zeros((1, table.shape[1]),
+                                             table.dtype)])
+    return padded[np.where(inside, rows, len(table))]
+
+
+@pytest.mark.parametrize("p,tables,live", [
+    (1, "two", "some"), (1500, "two", "some"), (2 * TILE, "two", "some"),
+    (1, "one", "some"), (1500, "one", "some"), (2 * TILE, "one", "some"),
+    (1500, "two", "none")])
+def test_dual_rows_twin_matches_pallas(p, tables, live):
+    """K1's rows route: fused_compare_dual_rows's plain version (CPU) against
+    disco_tpu's fused_compare_dual in interpret mode over the columns
+    gathered from the same tables and indices (an index outside its table
+    gathering a row of zeros), P padded to the Pallas tile with zero
+    geometry and cut back; with no live lane every flag is True."""
+    table1, rows1, table2, rows2, geo = _rows_case(31 + p, p, tables)
+    if live == "none":
+        geo = tuple(np.zeros_like(g) if i in (2, 4) else g
+                    for i, g in enumerate(geo))
+    assert table1.shape[1] == table2.shape[1]
+    a = _gathered(table1, rows1).T
+    b = _gathered(table2, rows2).T
+    pp = -(-p // TILE) * TILE
+    a_pad = np.zeros((a.shape[0], pp), np.uint32)
+    b_pad = np.zeros_like(a_pad)
+    a_pad[:, :p], b_pad[:, :p] = a, b
+    want = ref.fused_compare_dual(
+        jnp.asarray(a_pad), jnp.asarray(b_pad),
+        *(jnp.asarray(_pad(g, pp, 0)) for g in geo), interpret=True)
+    got = port.fused_compare_dual_rows(as_words(table1), _t(rows1),
+                                       as_words(table2), _t(rows2),
+                                       *(_t(g) for g in geo))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.bool and g.shape == (p,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:p])
+    if live == "none":
+        assert got[0].all() and got[1].all()
+    elif p > 1:
+        assert got[0].any() and not got[0].all()
+    assert port.fused_compare_dual_rows.launches == 0   # no kernel on the CPU
+
+
+def test_rows_wrapper_rejects_bad_inputs():
+    table1, rows1, table2, rows2, geo = _rows_case(2, 64, "two")
+    t1, t2 = as_words(table1), as_words(table2)
+    r1, r2 = _t(rows1), _t(rows2)
+    g = [_t(x) for x in geo]
+    with pytest.raises(TypeError):
+        port.fused_compare_dual_rows(t1, r1.long(), t2, r2, *g)
+    with pytest.raises(ValueError):
+        port.fused_compare_dual_rows(t1, r1, t2[:, :3], r2, *g)
+    with pytest.raises(ValueError):
+        port.fused_compare_dual_rows(t1, r1[:10], t2, r2, *g)
+    with pytest.raises(ValueError):
+        port.fused_compare_dual_rows(t1, r1, t2, r2, g[0][:10], *g[1:])
+    with pytest.raises(ValueError):
+        port.fused_compare_dual_rows(t1.T, r1, t2, r2, *g)
+    with pytest.raises(ValueError, match="CUDA card"):
+        k1d.design("scalar", "route", t1, r1, t2, r2, *g)
 
 
 # ---------------------------------------------------------------------------

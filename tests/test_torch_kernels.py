@@ -81,18 +81,21 @@ def test_kernel_loaders_name_their_headers(monkeypatch):
         raise _Stop
 
     monkeypatch.setattr(kernels, "_build", fake_build)
+    from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
     from disco_tpu_torch.tools import exp_k6_designs as kd
 
     for module, attr, loader in ((fk, "_LIB", fk.load),
                                  (fk, "_WINDOW_LIB", fk.load_window),
                                  (fk, "_STAGED_LIB", fk.load_staged),
-                                 (kd, "_LIB", kd.load)):
+                                 (kd, "_LIB", kd.load),
+                                 (k1d, "_LIB", k1d.load)):
         monkeypatch.setattr(module, attr, None)
         with pytest.raises(_Stop):
             loader()
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sorted(seen) == sources == ["dual_compare.cu", "k6_designs.cu",
-                                       "window_compare.cu",
+    assert sorted(seen) == sources == ["dual_compare.cu",
+                                       "k1_rows_designs.cu",
+                                       "k6_designs.cu", "window_compare.cu",
                                        "window_staged.cu"]
     def includes(path):
         return set(re.findall(r'#include "(\w+\.cuh)"', path.read_text()))
