@@ -123,7 +123,26 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    in turns, back to back and held, the column route, the rows route, its
    compaction and its check alone, its designs and the column kernels,
    each against the bound and row-layout sector floor of PERF.md
-   section 2 (`rows_work`).
+   section 2 (`rows_work`);
+11. one process per rank on the one card (`python -m
+   disco_tpu_torch.dist.multiproc --dist-backend gloo`, dist/multiproc.py):
+   two ranks, one shard each on the card (CUDA_VISIBLE_DEVICES pinned to
+   the first card), launched on a free port of 127.0.0.1 through
+   tools/multicard.py's RANK_LAUNCHER, which prints each rank's launch
+   counts, the bytes it receives from its peer through each collective
+   (the hit grids' gathers apart) and its seconds in each, its chunks,
+   `clock` stages, wall and peak device memory after `multiproc.main`
+   returns.  The golden `mini` in both modes, rank 0's
+   files equal to the reference's outputs; NCCL, the default backend, must
+   refuse the two ranks on one card (no switch to gloo); then phase 3's set
+   through `-rma` and the replicated mode (`-w 20000`), rank 0's files
+   equal to phase 5's native files.  In every run each rank's rows route
+   above 0, its column kernel, K2 and the route's designs 0, the ranks'
+   chunk counts equal and rank 1's directory empty; a rank that fails or
+   outlives its timeout fails the smoke.  Last, `assemble -ecc -backend
+   device` on `mini` with stand-in BBTools scripts (copy in= to out=),
+   every file equal to the same command with `-backend native`, K2 above
+   0.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -153,7 +172,10 @@ time (the union of its kernel and copy intervals), its idle share, and the
 device operations by time.
 
 Prints the kernels' JSON line (K1 and K2 also with `assemble_launches`,
-phase 9's counts, and `dist_launches`, phase 10's; K1 with its rows
+phase 9's counts, and `dist_launches`, phase 10's; K1 with
+`multiproc_launches`, phase 11's rows-route launches over its runs and
+ranks, and `multiproc_rank_launches` by run and rank; K2 with
+`ecc_launches`, phase 11's `assemble -ecc`; K1 with its rows
 route's `dist_rows_*` times, bound, sector floor, live lanes and launches
 at the dist shape, and the column route and column kernels there), the
 card's name and power limit, and last
@@ -2061,11 +2083,10 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
     import numpy as np
     import torch
     from disco_tpu_torch.dist import builder
-    from disco_tpu_torch.dist.mesh import make_mesh
+    from disco_tpu_torch.dist.mesh import gather_host, make_mesh
     from disco_tpu_torch.dist.overlap_shard import (PAD_KEY,
                                                     DistMemOverlapEngine,
-                                                    ShardedOverlapEngine,
-                                                    host)
+                                                    ShardedOverlapEngine)
     from disco_tpu_torch.index.table import FingerprintTable
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import device as dv
@@ -2096,7 +2117,7 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
                        np.pad(qcode[sl], (0, pad), constant_values=PAD_KEY),
                        marked)
             for g in out[:6]:
-                host(g)
+                gather_host(mesh, g)
 
     n_chunks = -(-len(qread) // chunk)
     profiled_chunks = (min(1, n_chunks - 1), min(1 + n_profiled, n_chunks))
@@ -2324,6 +2345,186 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: one process per rank on the one card
+# ---------------------------------------------------------------------------
+MP_RANKS = 2
+MP_TIMEOUT = 600         # seconds a rank may take before the phase fails
+MP_GRAPH = OUTPUTS + ("_0_startRead.txt",)
+# the copy-in-to-out stand-in for the BBTools scripts
+# (tests/test_preprocess.py::STUB): each in=/in2= file to its out=/out2=
+STUB_TOOL = """#!/bin/sh
+ins=""; outs=""
+for a in "$@"; do
+  case "$a" in
+    in=*)  ins="${a#in=}" ;;
+    in2=*) ins="$ins,${a#in2=}" ;;
+    out=*) outs="${a#out=}" ;;
+    out2=*) outs="$outs,${a#out2=}" ;;
+  esac
+done
+echo "$0 $@" >> "$(dirname "$0")/cmds.log"
+oldIFS=$IFS; IFS=,
+set -- $outs
+for i in $ins; do
+  [ -n "$1" ] && cp "$i" "$1" && shift
+done
+IFS=$oldIFS
+exit 0
+"""
+
+
+def run_ranks(tmp: pathlib.Path, tag: str, argv, cwd, backend="gloo",
+              timeout=MP_TIMEOUT):
+    """MP_RANKS ranks of tools/multicard.py's RANK_LAUNCHER on the first
+    card, under tmp/<tag>/ (`multicard.launch_ranks`): (each rank's exit
+    code and output, the ranks' prefixes).  A rank that outlives `timeout`
+    seconds fails the phase; every rank still running is killed."""
+    from disco_tpu_torch.tools.multicard import launch_ranks
+    env = dict(os.environ)
+    # every rank on the one card, whatever the host holds
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES",
+                                          "0").split(",")[0]
+    try:
+        return launch_ranks(MP_RANKS, tmp / tag, argv, cwd, backend=backend,
+                            timeout=timeout, env=env)
+    except TimeoutError as e:
+        raise SmokeFailure(f"multiproc {tag}: {e}") from None
+
+
+def multiproc_run(tmp, tag, argv, cwd, want_dir, want_name):
+    """One distributed buildG of MP_RANKS processes on the card over gloo:
+    every rank's rows route above 0, its column kernel, K2 and the route's
+    designs 0, rank 0's files equal want_dir/want_name*, the other ranks'
+    directories empty.  Prints the walls, rank 0's stages, the bytes a rank
+    receives a superstep, the seconds each rank spends in the collectives
+    and each rank's peak device memory.  Returns each
+    rank's rows-route launches."""
+    from disco_tpu_torch.tools.multicard import rank_records
+    t0 = time.perf_counter()
+    results, prefixes = run_ranks(tmp, tag, argv, cwd)
+    wall = time.perf_counter() - t0
+    try:
+        recs = rank_records(results)
+    except RuntimeError as e:
+        raise SmokeFailure(f"multiproc {tag}: {e}") from None
+    for r, rec in enumerate(recs):
+        check(rec["rows"] > 0, f"multiproc {tag}: rank {r} never launched "
+                               "K1's rows route")
+        check(rec["columns"] == 0 and rec["k2"] == 0 and rec["designs"] == 0,
+              f"multiproc {tag}: rank {r} launched K1's column kernel "
+              f"({rec['columns']}), K2 ({rec['k2']}) or a design "
+              f"({rec['designs']})")
+        check(rec["stats"] == recs[0]["stats"],
+              f"multiproc {tag}: the ranks' chunks differ: "
+              f"{[x['stats'] for x in recs]}")
+    for suffix in MP_GRAPH:
+        check(pathlib.Path(f"{prefixes[0]}{suffix}").read_bytes()
+              == (want_dir / f"{want_name}{suffix}").read_bytes(),
+              f"multiproc {tag}: rank 0's {suffix} differs from "
+              f"{want_name}{suffix}")
+    for r, p in enumerate(prefixes[1:], 1):
+        check(not list(p.parent.iterdir()),
+              f"multiproc {tag}: rank {r} wrote files")
+    chunks = recs[0]["stats"]["chunks"]
+    say(f"multiproc: {tag}: {MP_RANKS} ranks over gloo on the card, "
+        f"{wall:.2f} s (the ranks' own walls "
+        + ", ".join(f"{x['wall']:.2f}" for x in recs) + " s); "
+        f"{chunks} chunks, {recs[0]['stats']['fallback_chunks']} fallback; "
+        f"rank 0's {len(MP_GRAPH)} files equal {want_name}'s, rank 1 "
+        "wrote none")
+    say(f"multiproc: {tag}: rank 0's stages: " + ", ".join(
+        f"{n} {t:.2f} s" for n, t in recs[0]["stages"]))
+    for r, rec in enumerate(recs):
+        say(f"multiproc: {tag}: rank {r}: K1's rows route {rec['rows']} "
+            f"launches (column kernel {rec['columns']}, K2 {rec['k2']}); "
+            f"received from its peer a superstep: all_to_all "
+            f"{rec['all_to_all'] / chunks:.0f} B, all_gather "
+            f"{rec['all_gather'] / chunks:.0f} B, of which the hit grids "
+            f"and overflows {rec['grids'] / chunks:.0f} B; in the "
+            f"collectives over the run (card synchronised around each): "
+            f"all_to_all {rec['all_to_all_s']:.2f} s, all_gather "
+            f"{rec['all_gather_s']:.2f} s; peak device memory "
+            f"{rec['peak'] / 2**20:.1f} MiB")
+    return [rec["rows"] for rec in recs]
+
+
+def multiproc_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int):
+    """Phase 11.  Returns the rows-route launches of every run's ranks and
+    K2's launches in the `assemble -ecc -backend device` run."""
+    import torch
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.overlap import fused_kernel as fk
+
+    gdir = ROOT / "tests" / "golden" / "mini"
+    launches = {}
+    # ---- the golden mini, both modes --------------------------------------
+    for extra in ([], ["-rma"]):
+        tag = "mini" + "".join(extra)
+        launches[tag] = multiproc_run(
+            tmp, tag, ["-pe", "reads.fasta", "-m-ovl", "30", "-w", "1000",
+                       *extra], gdir, gdir, "mini")
+    # ---- NCCL refuses two ranks on one card: no switch to gloo ------------
+    results, _ = run_ranks(tmp, "nccl", ["-pe", "reads.fasta"], gdir,
+                           backend=None, timeout=180)
+    check(all(rc != 0 for rc, _ in results)
+          and any("Duplicate GPU" in out for _, out in results),
+          "multiproc over NCCL with two ranks on one card did not fail "
+          "with NCCL's duplicate-GPU error")
+    say("multiproc: NCCL (the default backend) with two ranks on one card: "
+        "both ranks failed with NCCL's duplicate-GPU error")
+    # ---- the full set, -rma then replicated --------------------------------
+    for extra in (["-rma"], []):
+        tag = "full" + "".join(extra)
+        launches[tag] = multiproc_run(
+            tmp, tag, ["-pe", str(fasta), "-m-ovl", str(min_ovl), "-w",
+                       "20000", *extra], tmp, tmp, "native")
+    say(f"multiproc: card {card_line()}")
+
+    # ---- assemble -ecc: device against native ------------------------------
+    bb = tmp / "bbmap"
+    (bb / "resources").mkdir(parents=True)
+    for name in ("bbduk.sh", "bbmerge.sh", "tadpole.sh"):
+        (bb / name).write_text(STUB_TOOL)
+        (bb / name).chmod(0o755)
+    for res in ("adapters.fa", "sequencing_artifacts.fa.gz",
+                "phix174_ill.ref.fa.gz"):
+        (bb / "resources" / res).write_text(">r\nACGT\n")
+    trees, k2 = {}, 0
+    for backend in ("native", "device"):
+        run = tmp / f"ecc_{backend}"
+        run.mkdir()
+        cwd = os.getcwd()
+        os.chdir(run)     # the same relative -d: _ReadIDMap.txt's paths
+        fk.fused_compare_dual_fetch.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["assemble", "-inP", str(gdir / "reads.fasta"),
+                           "-d", "out", "-o", "mini", *CFG_ARGS, "-ecc",
+                           "-bbmap", str(bb), "-backend", backend])
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        k2 = fk.fused_compare_dual_fetch.launches
+        check(rc == 0, f"assemble -ecc -backend {backend} exited {rc}")
+        out = run / "out"
+        trees[backend] = {p.relative_to(out): p.read_bytes()
+                          for p in sorted(out.rglob("*")) if p.is_file()}
+        say(f"multiproc: assemble -ecc -backend {backend} on mini: "
+            f"{wall:.2f} s, {len(trees[backend])} files, K2 {k2} launches")
+    check(k2 > 0, "assemble -ecc -backend device never launched K2")
+    check(trees["device"] == trees["native"],
+          "assemble -ecc: -backend device and -backend native differ")
+    check(trees["device"][pathlib.Path("graph/mini_0_parGraph.txt")]
+          == (gdir / "mini_0_parGraph.txt").read_bytes(),
+          "assemble -ecc: the graph differs from the golden's")
+    say(f"multiproc: assemble -ecc: every file of -backend device equals "
+        f"-backend native's ({len(trees['device'])} files), the graph the "
+        "golden's")
+    return launches, k2
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-len", type=int, default=4_600_000)
@@ -2529,6 +2730,13 @@ def main(argv=None) -> int:
         d_launches, d_k1 = dist_phase(tmp, fasta, min_ovl, walls, n_reads, wp)
         say(f"dist: phase {time.perf_counter() - t0:.2f} s")
 
+        # ---- 11. one process per rank -------------------------------------
+        gc.collect()
+        torch.cuda.empty_cache()     # the ranks' room on the card
+        t0 = time.perf_counter()
+        mp_launches, ecc_k2 = multiproc_phase(tmp, fasta, min_ovl)
+        say(f"multiproc: phase {time.perf_counter() - t0:.2f} s")
+
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": n, "max_abs_err": errs[k],
@@ -2568,11 +2776,13 @@ def main(argv=None) -> int:
         dict(entry("K1", "fused_compare_dual", KERNEL_SOURCE, K1_REPLACES,
                    launches["K1"], errs, med, bounds["K1"]),
              assemble_launches=a_launches["K1"],
-             dist_launches=d_launches["K1"], **d_k1),
+             dist_launches=d_launches["K1"],
+             multiproc_launches=sum(map(sum, mp_launches.values())),
+             multiproc_rank_launches=mp_launches, **d_k1),
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
              assemble_launches=a_launches["K2"],
-             dist_launches=d_launches["K2"]),
+             dist_launches=d_launches["K2"], ecc_launches=ecc_k2),
     ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs,
                v_med, v_bounds[k], v_floors)
          for k, name, replaces in SINGLE_KERNELS] + [

@@ -1,6 +1,7 @@
 """disco_tpu_torch — disco_tpu on PyTorch and CUDA: graph construction
-(buildG), graph simplification (fullsimplify, parsimplify) and the
-``assemble`` and ``stats`` commands.
+(buildG, also distributed over processes), graph simplification
+(fullsimplify, parsimplify), BBTools preprocessing and the ``assemble``,
+``preprocess`` and ``stats`` commands.
 
 The package mirrors ``disco_tpu``'s module names.  The host modules (ingest,
 QC, the fingerprint table, the replays, all of ``simplify``) are numpy

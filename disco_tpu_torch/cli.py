@@ -5,14 +5,18 @@ disco_tpu/cli.py).
 construction (buildG) -> graph simplification (fullsimplify) -> combined
 contig/scaffold FASTAs, with the same directory layout
 (<out>/graph/<prefix>_*, <out>/assembly/<prefix>_*) and per-iteration
-parameter files.  `buildg`, `simplify`, `parsimplify` and `stats` are the
-reference's buildG, fullsimplify and parsimplify executables and its
-assemblyStats.py.
+parameter files; with -ecc it first runs the BBTools preprocessing
+(runAssembly.sh:195-430).  `preprocess` is runECC.sh; `buildg`,
+`simplify`, `parsimplify` and `stats` are the reference's buildG,
+fullsimplify and parsimplify executables and its assemblyStats.py.
 
 Usage:
   python -m disco_tpu_torch assemble -inP reads.fasta -d out -o prefix \
       -p disco.cfg [-p2 ...] [-p3 ...] [-m 30] [-obg|-osg] [-resimp] \
-      [-backend device|native|xla] [-n N] [-rma]
+      [-backend device|native|xla] [-n N] [-rma] \
+      [-ecc -bbmap BBTOOLS_DIR [-ecc-t T] [-ecc-m GB]]
+  python -m disco_tpu_torch preprocess -inP reads.fasta -d out \
+      -bbmap BBTOOLS_DIR [-n T] [-m GB] [--keep]
   python -m disco_tpu_torch buildg -pe reads.fasta -f out/prefix \
       [-se single.fasta] [-p disco.cfg | -m-ovl 30] [-m 8] [-w N] \
       [-backend device|native|xla] [-n N] [-rma]
@@ -66,10 +70,8 @@ def cmd_assemble(args) -> int:
     """reads -> graph -> contigs and scaffolds.  -backend selects buildG's
     overlap engine (default `default_backend()`: the device when a card is
     present); -n N runs buildG over a mesh of N shards, dist-mem with
-    -rma (`_build_target`)."""
-    if args.ecc:
-        raise NotImplementedError(
-            "assemble -ecc (BBTools preprocessing): not yet ported")
+    -rma (`_build_target`); -ecc assembles the BBTools-corrected reads of
+    `preprocess`, written under <d>/ecc."""
     mesh, backend = _build_target(args)
     from .buildg.pipeline import run_buildg
     from .simplify.driver import run_fullsimplify
@@ -85,6 +87,21 @@ def cmd_assemble(args) -> int:
         return 1
 
     out = args.d
+    if args.ecc:
+        # preprocessing layer (runAssembly.sh:195-430): BBTools trim/filter/
+        # error-correct, then assemble the corrected reads
+        from .preprocess import run_preprocess
+        if not args.bbmap:
+            print("assemble -ecc: -bbmap <BBTools dir> required",
+                  file=sys.stderr)
+            return 1
+        paired, singles = run_preprocess(
+            args.bbmap, os.path.join(out, "ecc"),
+            in1=[args.in1] if args.in1 else [],
+            in2=[args.in2] if args.in2 else [],
+            inP=inter_files, inS=single_files,
+            threads=args.ecc_t or None, mem_gb=args.ecc_m or None)
+        pair_files, inter_files, single_files = [], paired, singles
     os.makedirs(os.path.join(out, "graph"), exist_ok=True)
     asm_dir = os.path.join(out, "assembly")
     if os.path.isdir(asm_dir) and args.resimp:
@@ -172,6 +189,25 @@ def cmd_buildg(args) -> int:
     return 0
 
 
+def cmd_preprocess(args) -> int:
+    """runECC.sh equivalent: BBTools trim/filter/error-correct; prints the
+    corrected file lists (reference: runECC.sh:180-440)."""
+    from .preprocess import run_preprocess
+    paired, single = run_preprocess(
+        args.bbmap, args.d,
+        in1=args.in1.split(",") if args.in1 else [],
+        in2=args.in2.split(",") if args.in2 else [],
+        inP=args.inP.split(",") if args.inP else [],
+        inS=args.inS.split(",") if args.inS else [],
+        threads=args.n or None, mem_gb=args.m or None,
+        keep_intermediates=args.keep)
+    if paired:
+        print("paired:", ",".join(paired))
+    if single:
+        print("single:", ",".join(single))
+    return 0
+
+
 def cmd_simplify(args) -> int:
     """`fullsimplify` executable equivalent (reference CLI:
     src/SimplifyGraph/src/Config.cpp:198-288)."""
@@ -255,12 +291,33 @@ def main(argv=None) -> int:
                         "O(N/n) a shard (default replicates it, buildG-MPI);"
                         " alone, the single-device buildG on the card")
     a.add_argument("-ecc", action="store_true",
-                   help="BBTools preprocessing before assembly (not yet "
-                        "ported)")
+                   help="BBTools preprocessing before assembly "
+                        "(runAssembly.sh equivalent; needs -bbmap)")
+    a.add_argument("-bbmap", help="BBTools install dir (for -ecc)")
+    a.add_argument("-ecc-t", dest="ecc_t", type=int, default=0,
+                   help="BBTools threads for -ecc (t=N); distinct from -n, "
+                        "the shard count")
+    a.add_argument("-ecc-m", dest="ecc_m", type=int, default=0,
+                   help="BBTools max memory GB for -ecc (-Xmx)")
     a.add_argument("--write-par-graph-size", type=int, default=1000)
     a.add_argument("-backend", choices=["device", "native", "xla"],
                    help="overlap-phase engine (see buildg -backend)")
     a.set_defaults(fn=cmd_assemble)
+
+    pp = sub.add_parser("preprocess",
+                        help="BBTools trim/filter/error-correction "
+                             "(runECC.sh equivalent)")
+    pp.add_argument("-in1", help="forward paired read file(s), comma-sep")
+    pp.add_argument("-in2", help="reverse paired read file(s), comma-sep")
+    pp.add_argument("-inP", help="interleaved paired read file(s), comma-sep")
+    pp.add_argument("-inS", help="single read file(s), comma-sep")
+    pp.add_argument("-d", default=".", help="output directory")
+    pp.add_argument("-bbmap", required=True, help="BBTools install dir")
+    pp.add_argument("-n", type=int, default=0, help="threads (t=N)")
+    pp.add_argument("-m", type=int, default=0, help="max memory GB (-Xmx)")
+    pp.add_argument("--keep", action="store_true",
+                    help="keep intermediate trm./ftl. files")
+    pp.set_defaults(fn=cmd_preprocess)
 
     b = sub.add_parser("buildg", help="graph construction (buildG)")
     b.add_argument("-pe", help="paired-end file(s), comma-sep")

@@ -7,7 +7,17 @@ superstep (query axis cut over the shards, fingerprint table sharded by
 key, all_to_all candidate routing) and assembled into the same relation
 order as the single-device path, so the sequential replay writes files
 byte-identical to a single-process reference run, whatever the shard
-count."""
+count.
+
+The mesh may span processes (dist/multiproc.py, one process per rank):
+every rank runs this same loop over the same host arrays, each step
+computes its local shards' slice, and `collect` gathers the hit grids and
+the overflow counts of every shard to every rank (`mesh.gather_host`), so
+every rank compacts the same rows and takes the same decision to re-run a
+chunk: ranks whose control flow diverged would wait on different
+collectives.  disco_tpu's multiproc raises on an overflow instead; here
+every rank re-runs the chunk exactly (`_chunk_fallback`) and gets the same
+rows."""
 import os
 from typing import Optional, Sequence, Union
 
@@ -21,9 +31,8 @@ from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
                                 window_codes)
 from ..overlap.verify import make_packed_all
 from ..utils.logging import clock
-from .mesh import Mesh, make_mesh
-from .overlap_shard import (PAD_KEY, DistMemOverlapEngine,
-                            ShardedOverlapEngine, host)
+from .mesh import Mesh, gather_host, make_mesh
+from .overlap_shard import PAD_KEY, DistMemOverlapEngine, ShardedOverlapEngine
 
 
 def _default_route_cap(chunk: int, n_dev: int) -> int:
@@ -54,14 +63,17 @@ def _chunk_fallback(store, table, qread, qj, qcode, s, e, *, device,
 
 
 def chunk_plan(table: FingerprintTable, q: int, n_dev: int,
-               route_cap: Optional[int], budget: int):
+               route_cap: Optional[int], budget: int,
+               hit_cap: Optional[int] = None):
     """(hit_cap, chunk, route_cap) of a sharded relation over q windows.
-    hit_cap is the table's largest key bucket, so the hit grids are
-    lossless; the chunk keeps chunk * hit_cap at the budget and is a
-    multiple of the shard count."""
-    # largest bucket in the sorted table = max run of equal keys
-    _, counts = np.unique(table.keys, return_counts=True)
-    hit_cap = max(int(counts.max()) if len(counts) else 1, 1)
+    hit_cap defaults to the table's largest key bucket, so the hit grids
+    are lossless (a smaller one overflows into the exact re-run); the chunk
+    keeps chunk * hit_cap at the budget and is a multiple of the shard
+    count."""
+    if hit_cap is None:
+        # largest bucket in the sorted table = max run of equal keys
+        _, counts = np.unique(table.keys, return_counts=True)
+        hit_cap = max(int(counts.max()) if len(counts) else 1, 1)
     chunk = max(budget // hit_cap, n_dev)
     chunk = min(chunk, -(-q // n_dev) * n_dev)
     chunk = -(-chunk // n_dev) * n_dev
@@ -72,14 +84,14 @@ def chunk_plan(table: FingerprintTable, q: int, n_dev: int,
 
 def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
               route_cap, budget, dist_mem, prune,
-              superread_init=None, stats=None):
+              superread_init=None, stats=None, hit_cap=None):
     """The chunked sharded relation; with `prune`, in-loop containment
     marking.  Returns (relation, superread, cont_lines)."""
     n_dev = mesh.size
     qread, qj, qcode = window_codes(store, table.k)
     q = len(qread)
     hit_cap, chunk, route_cap = chunk_plan(table, q, n_dev, route_cap,
-                                           budget)
+                                           budget, hit_cap)
     if dist_mem:
         eng = DistMemOverlapEngine.build(store, table, mesh, hit_cap=hit_cap,
                                          route_cap=route_cap,
@@ -108,7 +120,7 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
     stats.setdefault("chunks", 0)
 
     def collect(s, e, out):
-        if sum(int(x.sum()) for x in out[5]) != 0:
+        if gather_host(mesh, out[5]).sum() != 0:
             # a cap was exceeded in this chunk: recompute it exactly
             stats["fallback_chunks"] += 1
             if "packed_all" not in fallback:
@@ -119,7 +131,7 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
                                    packed_all=fallback["packed_all"])
         else:
             m = e - s
-            r2, orient, typ, edge_ok, cont_ok = (host(g)[:m]
+            r2, orient, typ, edge_ok, cont_ok = (gather_host(mesh, g)[:m]
                                                  for g in out[:5])
             qi, hi = np.nonzero(edge_ok | cont_ok)
             rows = {"r1": qread[s:e][qi], "j": qj[s:e][qi],
@@ -168,7 +180,8 @@ def sharded_relation(store: ReadStore, table: FingerprintTable, mesh: Mesh,
                      route_cap: Optional[int] = None,
                      budget: int = 1 << 25,
                      dist_mem: bool = False,
-                     stats: Optional[dict] = None) -> OverlapRelation:
+                     stats: Optional[dict] = None,
+                     hit_cap: Optional[int] = None) -> OverlapRelation:
     """The verified overlap relation on the mesh.
 
     Queries run in chunks of a fixed size a superstep, so device memory
@@ -178,10 +191,11 @@ def sharded_relation(store: ReadStore, table: FingerprintTable, mesh: Mesh,
     OverlapGraph.cpp:67-81).  dist_mem=True partitions the packed read
     payload over the shards (DistMemOverlapEngine, the buildG-MPIRMA
     equivalent); False replicates it (buildG-MPI).  `stats` counts chunks
-    and fallback_chunks."""
+    and fallback_chunks; `hit_cap` defaults to the largest key bucket
+    (`chunk_plan`)."""
     rel, _, _ = _relation(store, table, mesh, route_cap=route_cap,
                           budget=budget, dist_mem=dist_mem, prune=False,
-                          stats=stats)
+                          stats=stats, hit_cap=hit_cap)
     return rel
 
 

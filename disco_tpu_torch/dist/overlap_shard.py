@@ -15,10 +15,13 @@ It replaces the reference's two distribution modes:
   (BuildGraphMPI/src/OverlapGraph.cpp:204-290) becomes an `all_gather` a
   superstep.
 
-disco_tpu runs the superstep under `jax.shard_map` in one process; here
-the mesh (dist/mesh.py) is a list of devices, each piece between two
-collectives is a function of one shard's tensors, and the collectives are
-functions over the list of shards' tensors.  Everything has a fixed
+disco_tpu runs the superstep under `jax.shard_map`; here the mesh
+(dist/mesh.py) is a process's local shards, each piece between two
+collectives is a function of one shard's tensors, and the collectives take
+and return the list of the local shards' tensors (copies in one process,
+`torch.distributed` calls across processes).  The engines walk the local
+shards only, with their global ids where the table or payload layout
+needs them.  Everything has a fixed
 shape: queries are binned into per-peer blocks of `route_cap` slots
 (overflow is counted, and dist.builder re-runs such a chunk exactly), hits
 are capped at `hit_cap` a query.  Each shard's verification is K1's rows
@@ -40,7 +43,7 @@ from ..io.readstore import ReadStore
 from ..overlap.device import (_SIGN64, candidate_checks,
                               candidate_checks_rows, flip_keys)
 from ..overlap.verify import as_words, make_packed_all
-from .mesh import Mesh, all_gather, all_to_all
+from .mesh import Mesh, all_gather, all_to_all, gather_host
 
 PAD_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -87,16 +90,12 @@ def _scatter_rows(slots, n_rows, vals):
     return out[:n_rows]
 
 
-def host(xs):
-    """The shards' tensors concatenated on dim 0, as one numpy array."""
-    return torch.cat([x.cpu() for x in xs]).numpy()
-
-
-def gather(out):
+def gather(mesh: Mesh, out):
     """A step's per-shard outputs as disco_tpu's global arrays, on the
-    host: the (Q, H) grids r2, orient, typ, edge_ok, cont_ok, the
-    overflows (n_shards,) and the marked unions (n_shards, N)."""
-    return tuple(host(x) for x in out)
+    host (`mesh.gather_host`): the (Q, H) grids r2, orient, typ, edge_ok,
+    cont_ok, the overflows (n_shards,) and the marked unions (n_shards,
+    N)."""
+    return tuple(gather_host(mesh, x) for x in out)
 
 
 @dataclass
@@ -149,15 +148,15 @@ class ShardedOverlapEngine:
 
     # ------------------------------------------------------------------
     def _table_shards(self):
-        """Each shard's (keys flipped int64, read, orient, typ, size) on its
-        device."""
+        """Each local shard's (keys flipped int64, read, orient, typ, size)
+        on its device."""
         def dev(x, d):
             return torch.from_numpy(np.ascontiguousarray(x)).to(d)
 
         return [(dev(flip_keys(self.keys[s]), d), dev(self.read[s], d),
                  dev(self.orient[s], d), dev(self.typ[s], d),
                  int(self.sizes[s]))
-                for s, d in enumerate(self.mesh.devices)]
+                for s, d in zip(self.mesh.shards, self.mesh.devices)]
 
     def _inputs(self, qread, qj, qcode, marked):
         """Host chunk arrays -> per-shard tensors: qread, qj (int32), the
@@ -202,10 +201,10 @@ class ShardedOverlapEngine:
         return take(lread), take(lorient), take(ltyp), hit_valid, overflow
 
     def _candidates(self, qread, qj, qcode, qowner, marked, shards):
-        """Steps 1-5 of the superstep, over all shards: the marked union,
-        the route out, the lookup, the answers back, and their scatter to
-        the query rows, pruned by the union.  Returns per shard (r2, orient,
-        typ, valid, overflow) and the unions."""
+        """Steps 1-5 of the superstep, over the local shards: the marked
+        union, the route out, the lookup, the answers back, and their
+        scatter to the query rows, pruned by the union.  Returns per local
+        shard (r2, orient, typ, valid, overflow) and the unions."""
         mesh = self.mesh
         # 1. union of the marked bitmaps (replaces the async gossip)
         unions = all_gather(mesh, marked)
@@ -219,7 +218,7 @@ class ShardedOverlapEngine:
         # 4. answers ride back to the querying shard
         back = [all_to_all(mesh, [h[i] for h in hits]) for i in range(4)]
         out = []
-        for d in range(mesh.size):
+        for d in range(len(routed)):
             slots, overflow = routed[d][0], routed[d][1] + hits[d][4]
             # 5. scatter answers back to the query rows (the slot matrix is
             #    the routing permutation)
@@ -235,7 +234,7 @@ class ShardedOverlapEngine:
 
     def _superstep(self, packed_all, lengths, qread, qj, qcode, qowner,
                    marked, shards):
-        """The replicated-payload superstep over all shards (per-shard
+        """The replicated-payload superstep over the local shards (their
         inputs as lists).  Per-shard outputs: hit grids (Qs, H), overflow
         (1,), marked union (1, N)."""
         cands, unions = self._candidates(qread, qj, qcode, qowner, marked,
@@ -321,12 +320,12 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
 
     # ------------------------------------------------------------------
     def _fetch_rows(self, row_ids, payload, n_reads, block, fetch_cap):
-        """Exchange-fetch packed rows by global row id in [0, 2N) over all
-        shards: ids [0, N) are forward rows, [N, 2N) rc rows, id < 0 none;
-        read r is owned by shard r % n_shards, whose payload holds its
-        forward rows then its rc rows (2 * block, Wp); each peer pair has
-        `fetch_cap` request slots.  Returns per shard ((R, Wp) rows,
-        overflow)."""
+        """Exchange-fetch packed rows by global row id in [0, 2N) for the
+        local shards: ids [0, N) are forward rows, [N, 2N) rc rows, id < 0
+        none; read r is owned by shard r % n_shards, whose payload holds
+        its forward rows then its rc rows (2 * block, Wp); each peer pair
+        has `fetch_cap` request slots.  Returns per local shard ((R, Wp)
+        rows, overflow)."""
         mesh = self.mesh
         n = mesh.size
         routed = []
@@ -393,7 +392,7 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
         n = self.mesh.size
         packed_sh, packed_rc_sh, block = self.shard_payload(store, n)
         fetch_cap = fetch_cap_for(q_chunk, n, self.hit_cap)
-        blocks = [slice(s * block, (s + 1) * block) for s in range(n)]
+        blocks = [slice(s * block, (s + 1) * block) for s in self.mesh.shards]
         payload = [as_words(np.concatenate([packed_sh[b], packed_rc_sh[b]]),
                             d)
                    for b, d in zip(blocks, self.mesh.devices)]

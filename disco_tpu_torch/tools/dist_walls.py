@@ -61,11 +61,10 @@ def _supersteps(fasta, min_ovl, n_shards, n_profiled):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from disco_tpu_torch.dist import builder
-    from disco_tpu_torch.dist.mesh import make_mesh
+    from disco_tpu_torch.dist.mesh import gather_host, make_mesh
     from disco_tpu_torch.dist.overlap_shard import (PAD_KEY,
                                                     DistMemOverlapEngine,
-                                                    ShardedOverlapEngine,
-                                                    host)
+                                                    ShardedOverlapEngine)
     from disco_tpu_torch.index.table import FingerprintTable
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap.relation import window_codes
@@ -87,7 +86,7 @@ def _supersteps(fasta, min_ovl, n_shards, n_profiled):
                        np.pad(qcode[sl], (0, pad), constant_values=PAD_KEY),
                        marked)
             for g in out[:6]:
-                host(g)
+                gather_host(mesh, g)
 
     n_chunks = -(-len(qread) // chunk)
     last = min(1 + n_profiled, n_chunks)

@@ -83,19 +83,21 @@ def test_assemble_device_without_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [["-n", "2"], ["-rma"], ["-ecc"]],
                          ids=["n", "rma", "ecc"])
-def test_assemble_unported_options_raise(extra, tmp_path):
-    """-ecc is not yet ported.  -n and -rma (the distributed build) take the
-    CUDA cards: without one they raise before anything is written, and
-    nothing falls back to the CPU."""
+def test_assemble_unported_options_raise(extra, tmp_path, capsys):
+    """-ecc without -bbmap returns 1, as disco_tpu's assemble does.  -n and
+    -rma (the distributed build) take the CUDA cards: without one they
+    raise.  Either way nothing is written, and nothing falls back to the
+    CPU."""
+    argv = ["assemble", "-inP", "x.fasta", "-d", str(tmp_path), "-o", "p",
+            *extra]
     if extra == ["-ecc"]:
-        raises = pytest.raises(NotImplementedError, match="not yet ported")
+        assert tmain(argv) == 1
+        assert "-bbmap" in capsys.readouterr().err
     elif torch.cuda.is_available():
         pytest.skip("a CUDA card is present: -n and -rma run on it")
     else:
-        raises = pytest.raises(RuntimeError, match="no CUDA card")
-    with raises:
-        tmain(["assemble", "-inP", "x.fasta", "-d", str(tmp_path), "-o",
-               "p", *extra])
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tmain(argv)
     assert not list(tmp_path.iterdir())
 
 

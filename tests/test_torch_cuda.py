@@ -980,7 +980,8 @@ def test_dist_engines_on_the_card_match_cpu_shards(cuda_device, dist_mem):
     engine = shard.DistMemOverlapEngine if dist_mem else \
         shard.ShardedOverlapEngine
     steps = []
-    for mesh in (make_mesh(4), make_mesh(4, "cpu")):
+    meshes = (make_mesh(4), make_mesh(4, "cpu"))
+    for mesh in meshes:
         assert mesh.devices[0].type == ("cuda" if not steps else "cpu")
         eng = engine.build(store, table, mesh, **kw)
         steps.append(eng.make_step(store, q_chunk=chunk)[0] if dist_mem
@@ -993,11 +994,11 @@ def test_dist_engines_on_the_card_match_cpu_shards(cuda_device, dist_mem):
                 marked)
         before = port.fused_compare_dual_rows.launches
         columns = port.fused_compare_dual.launches
-        got = shard.gather(steps[0](*args))
+        got = shard.gather(meshes[0], steps[0](*args))
         torch.cuda.synchronize()
         assert port.fused_compare_dual_rows.launches == before + 4
         assert port.fused_compare_dual.launches == columns
-        want = shard.gather(steps[1](*args))
+        want = shard.gather(meshes[1], steps[1](*args))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
         assert got[3].any() and got[5].sum() == 0
@@ -1029,3 +1030,31 @@ def test_dist_buildg_forced_overflow_on_the_card(cuda_device, dist_mem,
                    "_0_startRead.txt", "_ReadIDMap.txt"):
         assert ((tmp_path / f"mini{suffix}").read_bytes()
                 == (MINI / f"mini{suffix}").read_bytes()), suffix
+
+
+# ---------------------------------------------------------------------------
+# one process per rank (dist/multiproc.py): two ranks on the one card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("rma", [False, True], ids=["replicated", "rma"])
+def test_two_ranks_on_the_card_over_gloo(cuda_device, rma, tmp_path):
+    """`python -m disco_tpu_torch.dist.multiproc --dist-backend gloo` in two
+    processes, one shard each on the card, on mini (through
+    tools/multicard.py's launcher, each rank's output to a file): rank 0's
+    files equal the reference's goldens, rank 1 writes nothing, and each
+    rank's supersteps launched K1's rows route (the column kernel and K2
+    never)."""
+    from disco_tpu_torch.tools.multicard import launch_ranks, rank_records
+
+    results, prefixes = launch_ranks(
+        2, tmp_path, ["-pe", "reads.fasta", *(["-rma"] if rma else [])],
+        MINI, backend="gloo", timeout=300)
+    for rec in rank_records(results):
+        assert rec["rows"] > 0, rec
+        assert (rec["columns"], rec["k2"]) == (0, 0), rec
+    for suffix in ("_0_parGraph.txt", "_0_containedReads.txt",
+                   "_0_startRead.txt", "_CheckpointInfo.txt",
+                   "_ReadIDMap.txt"):
+        assert (pathlib.Path(f"{prefixes[0]}{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix
+    assert not list(prefixes[1].parent.iterdir())

@@ -197,7 +197,7 @@ def test_superstep_grids_match_jax(mini, n, dist_mem, case):
                 qcode[s:s + chunk].copy(), marked)
         args[1][-7:] = -1                                 # pad windows
         args[2][-7:] = PAD_KEY
-        got = tshard.gather(step(*args))
+        got = tshard.gather(_cpu_mesh(n), step(*args))
         want = [np.asarray(x) for x in want_step(*args)]
         for name, a, b in zip(("r2", "orient", "typ", "edge_ok", "cont_ok",
                                "overflow", "unions"), got, want):
@@ -252,7 +252,7 @@ def test_supersteps_check_through_the_rows_route(mini, dist_mem,
     qread, qj, qcode = window_codes(store, table.k)
     marked = np.zeros(store.n_reads + (-store.n_reads) % n, np.int32)
     args = (qread[:chunk], qj[:chunk], qcode[:chunk], marked)
-    got = tshard.gather(step(*args))
+    got = tshard.gather(_cpu_mesh(n), step(*args))
     want = [np.asarray(x) for x in jstep(*want_args, *args)]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -271,8 +271,9 @@ def test_sharded_superstep_matches_host_relation(mini):
     qread, qj, qcode = window_codes(store, table.k)
     q = 8 * 512
     marked = np.zeros(store.n_reads + (-store.n_reads) % 8, np.int32)
+    step = eng.make_step(pstore)
     r2, _, _, edge_ok, _, overflow, _ = tshard.gather(
-        eng.make_step(pstore)(qread[:q], qj[:q], qcode[:q], marked))
+        eng.mesh, step(qread[:q], qj[:q], qcode[:q], marked))
     assert overflow.sum() == 0
     qi, hi = np.nonzero(edge_ok)
     got = sorted(zip(qread[qi].tolist(), qj[qi].tolist(),

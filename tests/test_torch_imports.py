@@ -39,7 +39,7 @@ def test_every_module_imports_without_jax():
               "simplify.scaffold", "simplify.contigs", "simplify.gfa",
               "simplify.cytoscape", "simplify.driver", "utils.stats",
               "dist", "dist.mesh", "dist.overlap_shard", "dist.builder",
-              "tools.bench_scaling"):
+              "dist.multiproc", "preprocess", "tools.bench_scaling"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -71,6 +71,7 @@ def test_cli_help_without_jax():
     ("assemble", ("-inP", "-backend", "-p3", "--write-par-graph-size",
                   "-rma", "buildG-MPIRMA")),
     ("buildg", ("-pe", "-rma", "buildG-MPI", "-n")),
+    ("preprocess", ("-in1", "-inP", "-bbmap", "--keep")),
     ("simplify", ("-fpi", "-crd", "-simPth")),
     ("parsimplify", ("edge_file", "min_ovl")),
     ("stats", ("denovo", "--min-len"))])
@@ -108,12 +109,13 @@ def test_cli_buildg_runs(tmp_path):
 
 def test_cli_unported_options_raise():
     """buildg -n and -rma (the distributed build) take the CUDA cards:
-    without one they raise, in a process without jax; assemble -ecc is not
-    yet ported."""
+    without one they raise, in a process without jax; assemble -ecc
+    without -bbmap returns 1, as disco_tpu's does."""
     code = ("import torch\n"
             "from disco_tpu_torch.cli import main\n"
-            "cases = [(['assemble', '-inP', 'x.fasta', '-d', 'd', '-o', 'p',\n"
-            "           '-ecc'], NotImplementedError, 'not yet ported')]\n"
+            "assert main(['assemble', '-inP', 'x.fasta', '-d', 'd', '-o',\n"
+            "             'p', '-ecc']) == 1\n"
+            "cases = []\n"
             "if not torch.cuda.is_available():\n"
             "    cases += [(['buildg', '-se', 'x.fasta', '-f', 'p'] + extra,\n"
             "               RuntimeError, 'no CUDA card')\n"
@@ -132,17 +134,24 @@ def test_cli_unported_options_raise():
 
 
 def test_dist_modules_use_no_jax_and_no_torch_distributed():
-    """The distributed build runs its mesh in one process with list
-    collectives: no module of disco_tpu_torch/dist/ (nor the scaling tool)
-    imports or calls torch.distributed, jax or disco_tpu."""
+    """torch.distributed stays behind two modules: the mesh's collectives
+    (dist/mesh.py) and the launcher (dist/multiproc.py).  The engines, the
+    chunk loop and the scaling tool see only the mesh's list collectives:
+    they import or call no torch.distributed.  No module of
+    disco_tpu_torch/dist/ imports jax or disco_tpu."""
+    users = {"mesh.py", "multiproc.py"}
     for p in [*sorted((PKG / "dist").glob("*.py")),
               PKG / "tools" / "bench_scaling.py"]:
         text = p.read_text()
-        for word in ("import torch.distributed", "from torch.distributed",
-                     "from torch import distributed", "torch.distributed.",
-                     "import jax", "from jax",
-                     "import disco_tpu\n", "from disco_tpu.",
-                     "import disco_tpu."):
+        words = ["import jax", "from jax", "import disco_tpu\n",
+                 "from disco_tpu.", "import disco_tpu."]
+        if p.name in users and p.parent.name == "dist":
+            assert "import torch.distributed as dist" in text, p.name
+        else:
+            words += ["import torch.distributed", "from torch.distributed",
+                      "from torch import distributed", "torch.distributed.",
+                      "dist.all_", "dist.init"]
+        for word in words:
             assert word not in text, (p.name, word)
 
 
@@ -157,6 +166,13 @@ def _help(module):
     res = _run(code)
     assert res.returncode == 0, res.stderr
     return res.stdout
+
+
+def test_multiproc_help_without_jax():
+    out = _help("disco_tpu_torch.dist.multiproc")
+    for opt in ("--coordinator", "--num-processes", "--process-id",
+                "--local-devices", "--dist-backend", "-m-ovl", "-rma"):
+        assert opt in out
 
 
 def test_bench_scaling_help_without_jax():
