@@ -26,7 +26,10 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    which the kernels read as zeros; kernel and plain times by CUDA events,
    the median over several chunks, the kernels' also held (below);
    reference: the device backend's outputs on the golden `mini` and
-   `ecoli` inputs are byte-identical to the reference assembler's;
+   `ecoli` inputs are byte-identical to the reference assembler's, as it
+   runs and with its caps forced small (chunks of 4096 windows, cand_cap
+   under one candidate a window: some chunks, not all, re-run exactly
+   through K1's column kernel, which must launch);
 5. slice, the main path: with the launch counts set to 0, `run_buildg`
    with the device backend (`buildg -backend device`: every candidate
    through the K2 kernel; K1 only for the exact re-run of a chunk that
@@ -38,7 +41,10 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    chunks and peak device memory;
 6. the device engine with its K1 check (fetch=False: K1's rows route,
    `fused_compare_dual_rows`), its count set to 0 before it: the
-   relation must equal the K2 one;
+   relation must equal the K2 one; then the 8-byte wire rows (`wire64`,
+   which sets of 2^23 reads and more take): the relation must equal the
+   4-byte one with no chunk re-run, its wall printed beside the 4-byte
+   run's overlapRelation;
 7. verify paths, the main path of bench_verify (`python -m
    disco_tpu_torch.bench_verify`): every candidate pair of the same read
    set (bench_verify.candidate_batch, MinOverlap 30) and the BFS relabel
@@ -142,7 +148,24 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    outlives its timeout fails the smoke.  Last, `assemble -ecc -backend
    device` on `mini` with stand-in BBTools scripts (copy in= to out=),
    every file equal to the same command with `-backend native`, K2 above
-   0.
+   0;
+12. the hit-cap grid engine (overlap/device.py's `run*` steps), on phase
+   3's set with disco_tpu's defaults (hit_cap 16, chunks of 2^21
+   windows): with the K1 (rows route and column kernel) and K2 counts set
+   to 0, `run_packed_chunked` over every window, each chunk's hits decoded
+   on the card (at most out_cap a chunk); the rows route above 0, the
+   column kernel and K2 0; the hits of the windows that do not overflow
+   must equal phase 5's relation there.  Prints the wall, the overflowing
+   windows and the peak device memory.  Then `run`, `run_compact` and
+   `run_packed` must agree on the first three chunks; `device_overlap` on
+   2^16 windows must equal the same call on the CPU in every field; K1's
+   rows route on the first chunk's grid (P = 2^21 x 16, its inputs
+   captured) equal to its plain version and timed back to back and held,
+   against the bound and floors of `rows_work`; `buildg -backend device`
+   on `mini` under DISCO_TPU_TORCH_TRACE (the CLI's trace wrap) with files
+   equal to the untraced run's and a Chrome trace that names K2's kernel;
+   and `python -m disco_tpu_torch.tools.bench_e2e --genome-len 1000000`
+   with outputs_identical true.
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -177,9 +200,10 @@ phase 9's counts, and `dist_launches`, phase 10's; K1 with
 ranks, and `multiproc_rank_launches` by run and rank; K2 with
 `ecc_launches`, phase 11's `assemble -ecc`; K1 with its rows
 route's `dist_rows_*` times, bound, sector floor, live lanes and launches
-at the dist shape, and the column route and column kernels there), the
-card's name and power limit, and last
-{"ok": true, "device": {...}}."""
+at the dist shape, and the column route and column kernels there; K1
+with phase 12's `grid_launches` and its rows route's `grid_rows_*` times,
+bound and floors at the grid's shape), the card's name and power limit,
+and last {"ok": true, "device": {...}}."""
 import argparse
 import concurrent.futures
 import contextlib
@@ -664,26 +688,76 @@ def kernel_phase(store, table):
     return med, errs, bounds
 
 
+@contextlib.contextmanager
+def forced_caps(chunk, cand_factor):
+    """While open, run_buildg's device relation runs in chunks of `chunk`
+    windows with cand_cap = cand_factor * chunk candidates: the goldens
+    hold under one candidate a window, so a cand_factor below 1 makes
+    chunks overflow and be re-run exactly (`relation._xla_rows`, K1's
+    column kernel)."""
+    from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.overlap.relation import _device_relation
+    real = pipeline.compute_relation
+
+    def forced(store, table, backend=None, device=None):
+        check(backend == "device", f"backend {backend}, not device")
+        return _device_relation(store, table, chunk=chunk,
+                                cand_factor=cand_factor, device=device)
+
+    pipeline.compute_relation = forced
+    try:
+        yield
+    finally:
+        pipeline.compute_relation = real
+
+
+# the golden cases, their writeParGraphSize and their forced caps (chunk,
+# cand_factor): re-runs of some chunks, not all (mini's chunks of 4096
+# windows hold 213-761 candidates, ecoli's 189-984)
+GOLDEN_CASES = (("mini", 1000, (1 << 12, 1 / 6)),
+                ("ecoli", 20000, (1 << 12, 1 / 5)))
+
+
 def golden_phase(tmp: pathlib.Path):
     """The device backend on the card against the reference assembler's
-    committed outputs (tests/golden)."""
+    committed outputs (tests/golden), as it runs and with its caps forced
+    small."""
     from disco_tpu_torch.buildg.pipeline import run_buildg
-    for case, wsize in (("mini", 1000), ("ecoli", 20000)):
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    for case, wsize, (chunk, factor) in GOLDEN_CASES:
         gdir = ROOT / "tests" / "golden" / case
-        cwd = os.getcwd()
-        os.chdir(gdir)    # _ReadIDMap.txt records the input path as given
-        try:
-            run_buildg(["reads.fasta"], [], str(tmp / case), min_overlap=30,
-                       write_par_graph_size=wsize, backend="device",
-                       device=DEVICE)
-        finally:
-            os.chdir(cwd)
-        for suffix in OUTPUTS:
-            check((tmp / (case + suffix)).read_bytes()
-                  == (gdir / (case + suffix)).read_bytes(),
-                  f"golden {case}{suffix} differs on the device backend")
-        say(f"reference: golden {case}: device backend byte-identical to the "
-            "reference outputs")
+        for tag in ("", "_forced"):
+            cwd = os.getcwd()
+            os.chdir(gdir)   # _ReadIDMap.txt records the input path as given
+            k1 = fk.fused_compare_dual.launches
+            try:
+                with (forced_caps(chunk, factor) if tag
+                      else contextlib.nullcontext()):
+                    _, rel, _ = run_buildg(
+                        ["reads.fasta"], [], str(tmp / (case + tag)),
+                        min_overlap=30, write_par_graph_size=wsize,
+                        backend="device", device=DEVICE)
+            finally:
+                os.chdir(cwd)
+            for suffix in OUTPUTS:
+                check((tmp / (case + tag + suffix)).read_bytes()
+                      == (gdir / (case + suffix)).read_bytes(),
+                      f"golden {case}{suffix} differs on the device backend"
+                      + (" with its caps forced small" if tag else ""))
+            fb, n = rel.stats["fallback_chunks"], rel.stats["chunks"]
+            k1 = fk.fused_compare_dual.launches - k1
+            if not tag:
+                say(f"reference: golden {case}: device backend "
+                    "byte-identical to the reference outputs")
+                continue
+            check(0 < fb < n, f"golden {case} with the caps forced small: "
+                              f"{fb} of {n} chunks re-run")
+            check(k1 > 0, f"golden {case}'s forced re-runs never launched "
+                          "K1's column kernel")
+            say(f"reference: golden {case}, caps forced small (chunk {chunk},"
+                f" cand_cap {int(factor * chunk)}): {fb} of {n} chunks re-run "
+                f"exactly through K1's column kernel ({k1} launches), "
+                "byte-identical to the reference outputs")
 
 
 # ---------------------------------------------------------------------------
@@ -2525,6 +2599,255 @@ def multiproc_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the hit-cap grid engine, the CLI's trace wrap and bench_e2e
+# ---------------------------------------------------------------------------
+GRID_HIT_CAP = 16      # disco_tpu's DeviceOverlapEngine default
+GRID_CHUNK = 1 << 21   # disco_tpu's run_packed_chunked default
+GRID_CHECKED = 3       # chunks on which run, run_compact and run_packed meet
+GRID_CPU = 1 << 16     # windows of the chunk held against the CPU
+
+
+def hit_keys(gw, r2, orient, typ, flags, n_reads):
+    """One int64 a hit: its global window, r2, orient, typ and flags."""
+    return ((gw * n_reads + r2) << 5) | (orient << 3) | (typ << 2) | flags
+
+
+def grid_chunks(eng, starts, n_reads):
+    """run_packed_chunked over `starts`, each chunk's hits decoded on the
+    card into hit_keys (the pad windows' dropped).  Returns (keys, the
+    overflowing windows' global indices, the hits a chunk)."""
+    import numpy as np
+    import torch
+    keys, over, counts = [], [], []
+    s = 0
+    for n_real, data, meta in eng.run_packed_chunked(starts,
+                                                     chunk=GRID_CHUNK):
+        meta = meta.cpu().numpy().view(np.uint32)      # count, overflow bits
+        count = int(meta[0])
+        check(count <= data.shape[1], f"the chunk at window {s} holds "
+                                      f"{count} hits, out_cap {data.shape[1]}")
+        counts.append(count)
+        bits = np.unpackbits(meta[1:].view(np.uint8), bitorder="little")
+        over.append(s + np.flatnonzero(bits[:n_real]))
+        w0, r2 = data[:, :count].long()
+        wi = w0 & 0x1FFFFF
+        sel = wi < n_real
+        w0 = w0[sel]
+        keys.append(hit_keys(s + wi[sel], r2[sel], (w0 >> 21) & 3,
+                             (w0 >> 23) & 1, (w0 >> 24) & 3, n_reads))
+        s += n_real
+    return torch.cat(keys), np.concatenate(over), counts
+
+
+def grid_agree(eng, part):
+    """run, run_compact and run_packed on one chunk: the grid's verified
+    slots of the windows that do not overflow, in (window, slot) order, are
+    the compact rows, and the packed rows and overflow bits are the compact
+    ones.  Returns the chunk's hits and overflowing windows."""
+    import torch
+    q = len(part)
+    grid = eng.run(part)
+    comp = eng.run_compact(part, GRID_CHUNK)
+    data, meta = eng.run_packed(part, GRID_CHUNK)
+    count = int(comp.count)
+    live = (grid.edge_ok | grid.cont_ok) & ~comp.over[:, None]
+    wi, _ = torch.nonzero(live, as_tuple=True)
+    flags = grid.edge_ok[live].int() | (grid.cont_ok[live].int() << 1)
+    check(len(wi) == count and count <= GRID_CHUNK,
+          f"the grid holds {len(wi)} verified slots, compact {count}")
+    for name, g, c in (("wi", wi.int(), comp.wi), ("r2", grid.r2[live],
+                       comp.r2), ("orient", grid.orient[live], comp.orient),
+                       ("typ", grid.typ[live], comp.typ),
+                       ("flags", flags, comp.flags)):
+        check(torch.equal(g, c[:count]), f"the grid's {name} differ from "
+                                         "the compact rows")
+    word0 = comp.wi | (comp.orient << 21) | (comp.typ << 23) | (
+        comp.flags << 24)
+    check(torch.equal(data, torch.stack([word0, comp.r2])),
+          "the packed rows differ from the compact rows")
+    words = meta.long() & 0xFFFFFFFF
+    bits = (words[1:, None] >> torch.arange(32, device=words.device)) & 1
+    check(int(words[0]) == count
+          and torch.equal(bits.reshape(-1)[:q].bool(), comp.over)
+          and int(grid.overflow) == int(comp.over.sum()),
+          "the packed count or overflow bits differ from the compact ones")
+    return count, int(grid.overflow)
+
+
+def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
+    """The hit-cap grid engine (overlap/device.py's run* steps, K1's rows
+    route) on the full set, against phase 5's relation; a chunk against the
+    CPU; K1's rows route at the grid's shape; the CLI's trace wrap; and
+    bench_e2e.  Returns K1's grid_* entries."""
+    import numpy as np
+    import torch
+    from disco_tpu_torch.cli import TRACE_ENV
+    from disco_tpu_torch.cli import main as cli_main
+    from disco_tpu_torch.overlap import device as dv
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    n_reads = store.n_reads
+    eng = dv.DeviceOverlapEngine(store, table, hit_cap=GRID_HIT_CAP,
+                                 device=DEVICE)
+    starts = eng.window_starts()
+    check(len(starts) * n_reads < 1 << 58, "hit keys past 63 bits")
+
+    # ---- every window through run_packed_chunked, the counts set to 0 ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.fused_compare_dual_rows.launches = 0
+    fk.fused_compare_dual.launches = 0
+    fk.fused_compare_dual_fetch.launches = 0
+    t0 = time.perf_counter()
+    keys, over, counts = grid_chunks(eng, starts, n_reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grid_launches = fk.fused_compare_dual_rows.launches
+    check(grid_launches > 0, "the grid engine never launched K1's rows route")
+    check(fk.fused_compare_dual.launches == 0
+          and fk.fused_compare_dual_fetch.launches == 0,
+          "the grid engine launched K1's column kernel or K2")
+    say(f"grid: run_packed_chunked over {len(starts)} windows (hit_cap "
+        f"{GRID_HIT_CAP}, {len(counts)} chunks of {GRID_CHUNK}): {wall:.2f} s"
+        f" with the decode on the card; {len(over)} windows overflow; "
+        f"{sum(counts)} hits, at most {max(counts)} a chunk; K1's rows route "
+        f"{grid_launches} launches, its column kernel and K2 0; peak device "
+        f"memory {peak / 2**20:.1f} MiB")
+    woff = np.concatenate([[0], np.cumsum(store.lengths.astype(np.int64)
+                                          - table.k)])
+    gw = woff[rel_dev.r1] + rel_dev.j
+    keep = ~np.isin(gw, over)
+    want = hit_keys(
+        gw[keep], rel_dev.r2[keep].astype(np.int64),
+        rel_dev.orient[keep].astype(np.int64),
+        rel_dev.typ[keep].astype(np.int64),
+        rel_dev.edge_ok[keep].astype(np.int64)
+        | (rel_dev.cont_ok[keep].astype(np.int64) << 1), n_reads)
+    want = torch.from_numpy(want).to(DEVICE)
+    check(torch.equal(keys.sort().values, want.sort().values),
+          "the grid engine's hits differ from phase 5's relation on the "
+          "windows that do not overflow")
+    say(f"grid: its {len(keys)} hits == phase 5's relation on the "
+        f"{len(starts) - len(over)} windows that do not overflow")
+    del keys, want, gw, keep
+
+    # ---- run, run_compact and run_packed agree; K1's inputs captured ------
+    real, seen = dv.fused_compare_dual_rows, []
+
+    def capture(*args):
+        if not seen:
+            seen.append(args)
+        return real(*args)
+
+    dv.fused_compare_dual_rows = capture
+    try:
+        got = [grid_agree(eng, starts[c * GRID_CHUNK:(c + 1) * GRID_CHUNK])
+               for c in range(GRID_CHECKED)]
+    finally:
+        dv.fused_compare_dual_rows = real
+    say(f"grid: run, run_compact and run_packed agree on the first "
+        f"{GRID_CHECKED} chunks: (hits, overflowing windows) {got}")
+
+    # ---- one chunk on the card against the same call on the CPU ----------
+    at = max(0, int(over[0]) - GRID_CPU // 2) if len(over) else \
+        len(starts) // 2
+    part = starts[at:at + GRID_CPU]
+    cpu = dv.DeviceOverlapEngine(store, table, hit_cap=GRID_HIT_CAP,
+                                 device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.run(part)
+    t_cpu = time.perf_counter() - t0
+    got = eng.run(part)
+    for f in want._fields:
+        check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+              f"device_overlap's {f} on the card differs from the CPU's")
+    say(f"grid: device_overlap on {GRID_CPU} windows from window {at}: the "
+        f"card == the CPU in every field ({int(want.overflow)} overflowing, "
+        f"{int(want.n_hits)} slots; the CPU {t_cpu:.2f} s)")
+    del cpu, got, want
+
+    # ---- K1's rows route at the grid's shape -----------------------------
+    t1, r1, t2, r2, *geo = seen[0]
+    del seen
+    route = lambda: fk.fused_compare_dual_rows(t1, r1, t2, r2, *geo)  # noqa
+    plain = lambda: fk.fused_compare_dual_rows_plain(        # noqa: E731
+        t1, r1, t2, r2, *geo)
+    err = max_abs_err(route(), plain())
+    check(err == 0, "K1's rows route at the grid's shape disagrees with "
+                    "its plain version")
+    ms, held = rows_turns({"route": route})["route"]
+    plain_ms = cuda_ms(plain, 1)
+    work = rows_work(t1, r1, t2, r2, tuple(geo))
+    bd = rows_bounds(work)["route"]
+    p = len(r1)
+    say(f"grid: K1's rows route at P = {p} (Wp {t1.shape[1]}), "
+        f"{work['live_lanes']} live lanes ({work['live_lanes'] / p:.4f}): "
+        f"{ms:.4f} ms ({held:.4f} held), plain {plain_ms:.4f} ms, == plain; "
+        f"{bd['bytes']} B, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}),"
+        f" row-layout floor {bd['sector_floor_ms']:.4f} ms, whole-sector "
+        f"floor {bd['whole_sector_floor_ms']:.4f} ms")
+    del t1, r1, t2, r2, geo, eng
+    torch.cuda.empty_cache()
+    out = {"grid_launches": grid_launches, "grid_P": p,
+           "grid_rows_live_P": work["live_lanes"], "grid_rows_ms": ms,
+           "grid_rows_held_ms": held, "grid_rows_plain_ms": plain_ms,
+           "grid_rows_max_abs_err": err, "grid_rows_bytes": bd["bytes"],
+           "grid_rows_bound_ms": bd["bound_ms"],
+           "grid_rows_bound_by": bd["bound_by"],
+           "grid_rows_sector_floor_ms": bd["sector_floor_ms"],
+           "grid_rows_whole_sector_floor_ms": bd["whole_sector_floor_ms"],
+           "grid_wall_s": wall, "grid_overflow_windows": len(over),
+           "grid_peak_bytes": peak}
+
+    # ---- the CLI's trace wrap: buildg -backend device on mini -------------
+    gdir = ROOT / "tests" / "golden" / "mini"
+    trace = tmp / "trace"
+    cwd = os.getcwd()
+    os.chdir(gdir)       # _ReadIDMap.txt records the input path as given
+    try:
+        for tag in ("untraced", "traced"):
+            if tag == "traced":
+                os.environ[TRACE_ENV] = str(trace)
+            k2 = fk.fused_compare_dual_fetch.launches
+            check(cli_main(["buildg", "-pe", "reads.fasta", "-f",
+                            str(tmp / f"{tag}_mini"), "-p", "buildg.cfg",
+                            "-backend", "device"]) == 0, f"{tag} buildg")
+            check(fk.fused_compare_dual_fetch.launches > k2,
+                  f"the {tag} buildg never launched K2")
+    finally:
+        os.environ.pop(TRACE_ENV, None)
+        os.chdir(cwd)
+    for suffix in OUTPUTS:
+        check((tmp / f"traced_mini{suffix}").read_bytes()
+              == (tmp / f"untraced_mini{suffix}").read_bytes()
+              == (gdir / f"mini{suffix}").read_bytes(),
+              f"the traced buildg's {suffix} differs")
+    traces = list(trace.iterdir())
+    check(len(traces) == 1, f"{len(traces)} trace files")
+    text = traces[0].read_text()
+    events = json.loads(text)["traceEvents"]
+    check("dual_compare_fetch_kernel" in text,
+          "the trace does not name K2's kernel")
+    say(f"grid: buildg -backend device on mini under {TRACE_ENV}: files == "
+        f"the untraced run's and the goldens; {traces[0].name} "
+        f"({len(text)} B, {len(events)} events) names "
+        "dual_compare_fetch_kernel")
+
+    # ---- bench_e2e -------------------------------------------------------
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "disco_tpu_torch.tools.bench_e2e",
+         "--genome-len", "1000000"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    check(res.returncode == 0, f"bench_e2e: {res.stderr[-2000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    check(line["outputs_identical"] is True, f"bench_e2e: {line}")
+    say(f"grid: bench_e2e --genome-len 1000000 in "
+        f"{time.perf_counter() - t0:.2f} s: {json.dumps(line)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-len", type=int, default=4_600_000)
@@ -2703,9 +3026,21 @@ def main(argv=None) -> int:
             f"launches, relation == K2 relation ({len(rel_dev)} rows) in "
             f"{t_k1:.2f} s; fallback chunks "
             f"{rel_k1.stats['fallback_chunks']} of {rel_k1.stats['chunks']}")
+        # the 8-byte wire rows, which sets of 2^23 reads and more take
+        t0 = time.perf_counter()
+        rel_w64 = _device_relation(store, table, device=DEVICE, wire64=True)
+        torch.cuda.synchronize()
+        t_w64 = time.perf_counter() - t0
+        check(rel_w64.stats["fallback_chunks"] == 0,
+              "the wire64 relation re-ran chunks")
+        check_same_relation(rel_w64, rel_dev, "wire64", "device")
+        say(f"engine: wire64 (8-byte rows) relation == the 4-byte one "
+            f"({len(rel_dev)} rows) in {t_w64:.2f} s, against the 4-byte "
+            f"run's overlapRelation {dict(dev_walls)['overlapRelation']:.2f}"
+            f" s; fallback chunks 0 of {rel_w64.stats['chunks']}")
         if args.profile:
             profile_phase(store, table)
-        del store, table, rel_dev, rel_xla, rel_k1
+        del rel_xla, rel_k1, rel_w64     # store, table, rel_dev: phase 12
         torch.cuda.empty_cache()
 
         # ---- 7. the verify paths of bench_verify ------------------------
@@ -2736,6 +3071,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mp_launches, ecc_k2 = multiproc_phase(tmp, fasta, min_ovl)
         say(f"multiproc: phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 12. the hit-cap grid engine -----------------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        g_k1 = grid_phase(tmp, store, table, rel_dev)
+        del store, table, rel_dev
+        say(f"grid: phase {time.perf_counter() - t0:.2f} s")
 
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
@@ -2778,7 +3121,7 @@ def main(argv=None) -> int:
              assemble_launches=a_launches["K1"],
              dist_launches=d_launches["K1"],
              multiproc_launches=sum(map(sum, mp_launches.values())),
-             multiproc_rank_launches=mp_launches, **d_k1),
+             multiproc_rank_launches=mp_launches, **d_k1, **g_k1),
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
              assemble_launches=a_launches["K2"],

@@ -31,6 +31,9 @@ import os
 import shutil
 import sys
 
+# names a directory: every subcommand then runs under a profiler trace
+TRACE_ENV = "DISCO_TPU_TORCH_TRACE"
+
 
 def _cfg_min_overlap(path: str, default: int = 30) -> int:
     try:
@@ -387,7 +390,33 @@ def main(argv=None) -> int:
     s.set_defaults(fn=cmd_stats)
 
     args = ap.parse_args(argv)
+    trace_dir = os.environ.get(TRACE_ENV)
+    if trace_dir:
+        return _traced(args, trace_dir)
     return args.fn(args)
+
+
+def _traced(args, trace_dir: str) -> int:
+    """Run the subcommand under torch.profiler (the host's operators, and
+    the card's kernels and copies when a card is present) and write a
+    Chrome trace, `<cmd>.<pid>.trace.json`, into `trace_dir` (the
+    reference ships runDisco-MPI-AllineaMAP.sh to run under a profiler;
+    disco_tpu's counterpart is its jax.profiler trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return args.fn(args)
+    finally:
+        # written also when the subcommand raises, as jax's trace is
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"{args.cmd}.{os.getpid()}.trace.json"))
 
 
 if __name__ == "__main__":

@@ -145,3 +145,29 @@ class ReadStore:
         return cls(n_reads=n, max_len=max_len, n_words=n_words,
                    lengths=lengths, file_index=file_index,
                    packed=packed, packed_rc=packed_rc)
+
+    # ------------------------------------------------------------------ query
+    def get(self, read_id: int) -> str:
+        """Forward string of 1-based read_id (debug/host use)."""
+        i = read_id - 1
+        length = int(self.lengths[i])
+        out = []
+        for w in self.packed[i]:
+            out.append(dna.unpack_word(int(w)))
+        return "".join(out)[:length]
+
+    def get_rc(self, read_id: int) -> str:
+        i = read_id - 1
+        length = int(self.lengths[i])
+        out = []
+        for w in self.packed_rc[i]:
+            out.append(dna.unpack_word(int(w)))
+        return "".join(out)[:length]
+
+    def kmer_code(self, read_id: int, start: int, k: int) -> int:
+        """2-bit code of bases [start, start+k) of the forward read (host)."""
+        s = self.get(read_id)[start:start + k]
+        code = 0
+        for ch in s:
+            code = (code << 2) | "ACGT".index(ch)
+        return code

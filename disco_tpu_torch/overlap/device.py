@@ -1,7 +1,6 @@
 """The device half of buildG on torch tensors: window codes -> sorted-table
-lookup -> dense candidate compaction -> dual window check -> hit
-compaction to wire rows (the counterpart of disco_tpu/overlap/device.py's
-dense path).
+lookup -> candidates -> dual window check -> hit compaction (the
+counterpart of disco_tpu/overlap/device.py).
 
 - Window codes come straight from the packed words with a three-word
   funnel, in int64: for window j, take words j//16, +1, +2, shift out the
@@ -10,18 +9,27 @@ dense path).
 - Lookup is `torch.searchsorted` over the sorted fingerprint keys, held as
   int64 with the sign bit flipped so signed order is the keys' unsigned
   order (reference: the bucket probe of HashTable.cpp:521-571).
-- Candidates are compacted before the check: the bucket ranges are
-  flattened into a (cand_cap,) list by an inverse searchsorted over the
-  per-window prefix sums, and only those pairs are checked.
+- The dense path (`device_overlap_dense*`, the main path) compacts the
+  candidates before the check: the bucket ranges are flattened into a
+  (cand_cap,) list by an inverse searchsorted over the per-window prefix
+  sums, and only those pairs are checked.
+- The hit-cap grid (`device_overlap`, `_compact`, `_packed`) expands each
+  window's bucket to a fixed (Q, hit_cap) grid instead, with a validity
+  mask and a count of the windows whose bucket is larger than the cap; the
+  compact and packed variants drop those windows' hits and compact the rest
+  on the device.
 - The check is the K2 kernel (`fused_kernel.fused_compare_dual_fetch`) when
   a packed table is given, else K1's rows route
   (`fused_kernel.fused_compare_dual_rows`), which reads both rows by index
   from packed_all on the live lanes only.
 - Verified hits are compacted to 4-byte (`device_overlap_dense32`) or
-  8-byte (`device_overlap_dense`) wire rows in window order.
+  8-byte (`device_overlap_dense`, `device_overlap_packed`) wire rows in
+  window order.
 
 All functions take and return tensors on the caller's device; no shape or
 count is read back to the host inside them."""
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -32,6 +40,33 @@ from .verify import as_words, make_packed_all
 
 _M32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)
+
+
+class DeviceOverlapResult(NamedTuple):
+    """Per (window, slot) candidate grid with verification masks."""
+    r2: torch.Tensor        # (Q, H) int32 candidate read ids
+    orient: torch.Tensor    # (Q, H) int32 hit orientation
+    typ: torch.Tensor       # (Q, H) int32 record type
+    edge_ok: torch.Tensor   # (Q, H) bool
+    cont_ok: torch.Tensor   # (Q, H) bool
+    overflow: torch.Tensor  # () int64 windows with more than H hits
+    n_hits: torch.Tensor    # () int64 occupied candidate slots
+
+
+class DeviceCompactResult(NamedTuple):
+    """The verified hits of one window chunk, compacted on the device.
+
+    Rows are in (window, table slot) order, the reference's (r1, j,
+    bucket scan) relation order.  `count` may exceed `out_cap` (the rows
+    past it are dropped): the caller must then re-run the chunk by an
+    exact path."""
+    wi: torch.Tensor        # (out_cap,) int32 window index within the chunk
+    r2: torch.Tensor        # (out_cap,) int32 candidate read id
+    orient: torch.Tensor    # (out_cap,) int32 hit orientation
+    typ: torch.Tensor       # (out_cap,) int32 record type
+    flags: torch.Tensor     # (out_cap,) int32 bit0 edge_ok, bit1 cont_ok
+    count: torch.Tensor     # () int32 verified rows in the chunk
+    over: torch.Tensor      # (Q,) bool the window's bucket exceeds hit_cap
 
 
 def flip_keys(keys: np.ndarray) -> np.ndarray:
@@ -282,19 +317,117 @@ def device_overlap_dense32(packed, packed_all, lengths, starts, tmeta, keys,
     return _narrow32(word & _M32), esc_stream, meta
 
 
+def _hit_grid(packed, packed_all, lengths, starts, tmeta, keys, *, k,
+              max_len, hit_cap, drop_over):
+    """Lookup + the (Q, hit_cap) candidate grid + the dual check through
+    K1's rows route over the flattened grid (no row block is gathered).
+    Positions are int32 (tables hold under 2^31 entries).  With
+    `drop_over` a window whose bucket exceeds hit_cap gets no valid slot;
+    without it its first hit_cap slots stay valid.  Returns (r2, orient,
+    typ, edge_ok, cont_ok, valid, over): (Q, H) int32 / bool grids and the
+    (Q,) bool overflow mask."""
+    q = starts.shape[0]
+    qread = starts // max_len
+    qj = starts % max_len
+    qcode = _window_codes(packed, qread, qj, k)
+    lo = torch.searchsorted(keys, qcode, out_int32=True)
+    hi = torch.searchsorted(keys, qcode, right=True, out_int32=True)
+    over = (hi - lo) > hit_cap
+    tpos = lo[:, None] + torch.arange(hit_cap, dtype=torch.int32,
+                                      device=lo.device)
+    valid = tpos < hi[:, None]
+    if drop_over:
+        valid &= ~over[:, None]
+    meta = torch.where(valid, tmeta[tpos.clamp_(0, tmeta.shape[0] - 1)], 0)
+    del tpos
+    r2, orient, typ = meta >> 3, (meta >> 1) & 3, meta & 1
+    edge_ok, cont_ok = candidate_checks(
+        packed_all, lengths, qread.to(torch.int32).repeat_interleave(hit_cap),
+        qj.to(torch.int32).repeat_interleave(hit_cap), r2.reshape(-1),
+        orient.reshape(-1), valid.reshape(-1), k=k)
+    return (r2, orient, typ, edge_ok.reshape(q, hit_cap),
+            cont_ok.reshape(q, hit_cap), valid, over)
+
+
+def device_overlap(packed, packed_all, lengths, starts, tmeta, keys, *, k,
+                   max_len, hit_cap):
+    """The hit-cap grid step.  starts: (Q,) int64 window ids (read *
+    max_len + j); tmeta, keys as for `device_overlap_dense`.  Every
+    window's first hit_cap bucket entries are checked, also in a window
+    whose bucket is larger: `overflow` counts those windows, for the caller
+    to re-run exactly."""
+    r2, orient, typ, edge_ok, cont_ok, valid, over = _hit_grid(
+        packed, packed_all, lengths, starts, tmeta, keys, k=k,
+        max_len=max_len, hit_cap=hit_cap, drop_over=False)
+    return DeviceOverlapResult(r2, orient, typ, edge_ok, cont_ok, over.sum(),
+                               valid.sum())
+
+
+def device_overlap_compact(packed, packed_all, lengths, starts, tmeta, keys,
+                           *, k, max_len, hit_cap, out_cap):
+    """`device_overlap` with the overflowing windows' hits dropped and the
+    verified hits compacted on the device into (out_cap,) rows, so that
+    O(hits) words leave the device a chunk instead of the (Q, hit_cap)
+    grids (the reference's hot loop,
+    src/BuildGraph/src/OverlapGraph.cpp:401-478,631-674)."""
+    r2, orient, typ, edge_ok, cont_ok, _, over = _hit_grid(
+        packed, packed_all, lengths, starts, tmeta, keys, k=k,
+        max_len=max_len, hit_cap=hit_cap, drop_over=True)
+    keep = (edge_ok | cont_ok).reshape(-1)
+    flags = edge_ok.to(torch.int32) | (cont_ok.to(torch.int32) << 1)
+    wi = torch.arange(starts.shape[0], dtype=torch.int32,
+                      device=starts.device).repeat_interleave(hit_cap)
+    scat = _Scatter(keep, out_cap)
+    return DeviceCompactResult(
+        wi=scat(wi, torch.int32), r2=scat(r2.reshape(-1), torch.int32),
+        orient=scat(orient.reshape(-1), torch.int32),
+        typ=scat(typ.reshape(-1), torch.int32),
+        flags=scat(flags.reshape(-1), torch.int32),
+        count=keep.sum().to(torch.int32), over=over)
+
+
+def device_overlap_packed(packed, packed_all, lengths, starts, tmeta, keys,
+                          *, k, max_len, hit_cap, out_cap):
+    """`device_overlap_compact` in two arrays: data (2, out_cap) int32, row
+    0 wi | orient << 21 | typ << 23 | flags << 24 and row 1 r2 (8 B a
+    hit), and meta int32 holding the uint32 words [count, the overflow
+    bits of the windows, 32 a word, window i at bit i % 32 of word
+    i // 32].  Q is at most 2^21 (the window index's 21 bits)."""
+    q = starts.shape[0]
+    if q > 1 << 21:
+        raise ValueError(f"{q} windows: the packed row holds 2^21 at most")
+    res = device_overlap_compact(packed, packed_all, lengths, starts, tmeta,
+                                 keys, k=k, max_len=max_len,
+                                 hit_cap=hit_cap, out_cap=out_cap)
+    word0 = (res.wi | (res.orient << 21) | (res.typ << 23)
+             | (res.flags << 24))
+    data = torch.stack([word0, res.r2])
+    # uint32 words built in int64 (torch on the CPU has no uint32 shift)
+    bits = torch.nn.functional.pad(res.over.to(torch.int64),
+                                   (0, (-q) % 32)).reshape(-1, 32)
+    over_words = (bits << torch.arange(32, device=bits.device)).sum(1)
+    meta = torch.cat([res.count.to(torch.int64)[None], over_words])
+    return data, _narrow32(meta)
+
+
 class DeviceOverlapEngine:
     """Host wrapper: puts the read store and the table on `device` (default:
-    the CUDA card; without one it raises) and runs the dense overlap step
-    over window chunks.
+    the CUDA card; without one it raises) and runs the overlap steps over
+    window chunks: the dense steps (`run_dense*`) and the hit-cap grid
+    steps of `hit_cap` slots a window (`run`, `run_compact`,
+    `run_packed` and their chunked forms).
 
-    `fetch` selects the check: True runs K2, which reads read1's rows from
-    packed_all; False runs K1's rows route, which reads both rows from
-    packed_all by index.  `stats` counts chunks; the caller adds the
+    `fetch` selects the dense steps' check: True runs K2, which reads
+    read1's rows from packed_all; False runs K1's rows route, which reads
+    both rows from packed_all by index.  The grid steps always check
+    through the rows route.  `stats` counts chunks; the caller adds the
     chunks it re-ran by an exact path."""
 
-    def __init__(self, store, table, device=None, fetch: bool = True):
+    def __init__(self, store, table, hit_cap: int = 16, device=None,
+                 fetch: bool = True):
         self.store = store
         self.k = table.k
+        self.hit_cap = hit_cap
         self.device = (torch.device(device) if device is not None
                        else _default_device())
         self.packed = as_words(store.packed, self.device)
@@ -337,6 +470,33 @@ class DeviceOverlapEngine:
     def run_dense32(self, starts, cand_cap: int, out_cap: int, rbits: int):
         return device_overlap_dense32(*self._args(starts), rbits=rbits,
                                       **self._kw(cand_cap, out_cap))
+
+    def _gkw(self):
+        return dict(k=self.k, max_len=self.store.max_len,
+                    hit_cap=self.hit_cap)
+
+    def run(self, starts) -> DeviceOverlapResult:
+        return device_overlap(*self._args(starts), **self._gkw())
+
+    def run_compact(self, starts, out_cap: int) -> DeviceCompactResult:
+        return device_overlap_compact(*self._args(starts), out_cap=out_cap,
+                                      **self._gkw())
+
+    def run_packed(self, starts, out_cap: int):
+        return device_overlap_packed(*self._args(starts), out_cap=out_cap,
+                                     **self._gkw())
+
+    def run_chunked(self, starts: np.ndarray, chunk: int = 1 << 17):
+        """Yield (n_real, DeviceOverlapResult) per chunk of `chunk`
+        windows, the last padded with repeats of its final window."""
+        return self._chunked(lambda part: (self.run(part),), starts, chunk)
+
+    def run_packed_chunked(self, starts: np.ndarray, chunk: int = 1 << 21,
+                           out_cap: int = None):
+        """Yield (n_real, data, meta) per chunk (`run_packed`)."""
+        out_cap = out_cap or chunk
+        return self._chunked(lambda part: self.run_packed(part, out_cap),
+                             starts, chunk)
 
     def _chunked(self, step, starts, chunk):
         """Yield (n_real, *step(part)) per chunk, the last chunk padded

@@ -261,7 +261,7 @@ def _sorted_relation(store: ReadStore, rows: dict, k: int,
 
 
 def _device_relation(store: ReadStore, table: FingerprintTable,
-                     chunk: int = None, cand_factor: int = 4, *,
+                     chunk: int = None, cand_factor: float = 4, *,
                      rbits: int = None, wire64: bool = False, device=None,
                      fetch: bool = True) -> OverlapRelation:
     """The device overlap phase: the full window scan runs through the
@@ -270,9 +270,10 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
     (8-byte rows with `wire64`, or when the read id does not fit the 4-byte
     row).  Chunks whose candidate or hit count exceeds the static caps
     (cand_factor * chunk, chunk) are re-run exactly by `_xla_rows`; their
-    number is `stats["fallback_chunks"]` of the result.  Output is
-    identical to the native backend: same rows, same (r1, j, bucket-scan)
-    order.
+    number is `stats["fallback_chunks"]` of the result.  A cand_factor
+    below 1 forces such re-runs on inputs of fewer candidates than
+    windows.  Output is identical to the native backend: same rows, same
+    (r1, j, bucket-scan) order.
 
     `rbits` widens the 4-byte row's read field (more escapes; it is never
     narrower than the read ids need).  `fetch` picks the check: K2 (True)
@@ -285,7 +286,7 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
         # on the CPU the checks run as their plain versions, whose
         # temporaries grow with cand_cap x Wp: keep chunks small there
         chunk = 1 << 20 if device.type == "cuda" else 1 << 14
-    cand_cap = cand_factor * chunk
+    cand_cap = int(cand_factor * chunk)
     k = table.k
     qread, qj, qcode = window_codes(store, k)
     eng = DeviceOverlapEngine(store, table, device=device, fetch=fetch)

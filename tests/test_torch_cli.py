@@ -183,3 +183,28 @@ def test_cli_stats(tmp_path, monkeypatch, capsys):
     assert printed["port"] == printed["jax"]
     assert printed["port"].endswith("scf.stat.txt\n")
     assert_same_tree(tmp_path / "port", tmp_path / "jax")
+
+
+def test_trace_wrap_keeps_the_outputs(tmp_path, monkeypatch):
+    """buildg -backend native on mini with DISCO_TPU_TORCH_TRACE naming a
+    directory: the files equal those of the run without it (and the
+    reference's), and the directory holds one Chrome trace, JSON with
+    `traceEvents`."""
+    import json
+    from disco_tpu_torch.cli import TRACE_ENV
+    monkeypatch.chdir(MINI)
+    trace = tmp_path / "trace"
+    for name in ("plain", "traced"):
+        if name == "traced":
+            monkeypatch.setenv(TRACE_ENV, str(trace))
+        (tmp_path / name).mkdir()
+        assert tmain(["buildg", "-pe", "reads.fasta", "-f",
+                      str(tmp_path / name / "mini"), "-p", "buildg.cfg",
+                      "-backend", "native"]) == 0
+    assert_same_tree(tmp_path / "plain", tmp_path / "traced")
+    for suffix in GRAPH:
+        assert ((tmp_path / "traced" / f"mini{suffix}").read_bytes()
+                == (MINI / f"mini{suffix}").read_bytes()), suffix
+    files = list(trace.iterdir())
+    assert len(files) == 1 and files[0].name.startswith("buildg.")
+    assert isinstance(json.loads(files[0].read_text())["traceEvents"], list)

@@ -4,7 +4,8 @@ K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
 tools/exp_mxu_fetch.py: T3 and its unpipelined control) against their plain
-versions, on a CUDA card; and the distributed buildG (dist/) with its
+versions, on a CUDA card; the hit-cap grid engine (overlap/device.py) on
+the card against the CPU; and the distributed buildG (dist/) with its
 shards on the card, against CPU shards and the goldens.
 Tolerance: exact — the outputs are booleans and integers.
 
@@ -1030,6 +1031,58 @@ def test_dist_buildg_forced_overflow_on_the_card(cuda_device, dist_mem,
                    "_0_startRead.txt", "_ReadIDMap.txt"):
         assert ((tmp_path / f"mini{suffix}").read_bytes()
                 == (MINI / f"mini{suffix}").read_bytes()), suffix
+
+
+# ---------------------------------------------------------------------------
+# the hit-cap grid engine (overlap/device.py): K1's rows route on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("hit_cap", [2, 32])
+def test_grid_engine_on_the_card_matches_cpu(cuda_device, hit_cap):
+    """run, run_compact and run_packed on the card against the same steps on
+    the CPU (the rows route's plain version), on two chunks of mini (hit_cap
+    2 overflows some windows): every field equal; each step launches the
+    rows route once and the column kernel and K2 never, and the packed step
+    never waits for the host."""
+    from disco_tpu_torch.overlap import device as dv
+
+    store, table = _mini_state()
+    card = dv.DeviceOverlapEngine(store, table, hit_cap=hit_cap,
+                                  device=cuda_device)
+    cpu = dv.DeviceOverlapEngine(store, table, hit_cap=hit_cap, device="cpu")
+    starts = card.window_starts()
+    chunk = 1 << 13
+    overflow = 0
+    for s in (0, len(starts) // 2):
+        part = starts[s:s + chunk]
+        counts = (port.fused_compare_dual_rows.launches,
+                  port.fused_compare_dual.launches,
+                  port.fused_compare_dual_fetch.launches)
+        got = (card.run(part), card.run_compact(part, chunk),
+               card.run_packed(part, chunk))
+        torch.cuda.synchronize()
+        assert (port.fused_compare_dual_rows.launches,
+                port.fused_compare_dual.launches,
+                port.fused_compare_dual_fetch.launches) == (
+            counts[0] + 3, counts[1], counts[2])
+        want = (cpu.run(part), cpu.run_compact(part, chunk),
+                cpu.run_packed(part, chunk))
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        overflow += int(got[0].overflow)
+        assert got[0].edge_ok.any()
+    assert (overflow > 0) == (hit_cap == 2)
+    args = card._args(starts[:chunk])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dv.device_overlap_packed(*args, k=card.k, max_len=store.max_len,
+                                 hit_cap=hit_cap, out_cap=chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax():
               "simplify.scaffold", "simplify.contigs", "simplify.gfa",
               "simplify.cytoscape", "simplify.driver", "utils.stats",
               "dist", "dist.mesh", "dist.overlap_shard", "dist.builder",
-              "dist.multiproc", "preprocess", "tools.bench_scaling"):
+              "dist.multiproc", "preprocess", "tools.bench_scaling",
+              "tools.bench_e2e", "buildg.replay", "overlap.device", "cli"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -57,6 +57,24 @@ def test_pack_matches_reference_and_native():
     assert dna.unpack_word(int(words[0, 0])) == seqs[0][:16]
 
 
+def test_readstore_queries_match_reference():
+    """ReadStore.get, get_rc and kmer_code against disco_tpu's on seeded
+    read ids, starts and lengths of golden `mini`."""
+    from disco_tpu.io.readstore import ReadStore as RefStore
+    from disco_tpu_torch.io.readstore import ReadStore
+    path = [str(GOLDEN / "mini" / "reads.fasta")]
+    ref = RefStore.from_files(path, [], 30)
+    store = ReadStore.from_files(path, [], 30)
+    rng = np.random.default_rng(5)
+    for rid in rng.integers(1, store.n_reads + 1, 40).tolist():
+        seq = store.get(rid)
+        assert seq == ref.get(rid) and len(seq) == store.lengths[rid - 1]
+        assert store.get_rc(rid) == ref.get_rc(rid) == dna.revcomp(seq)
+        start = int(rng.integers(0, len(seq) - 31))
+        k = int(rng.integers(1, 32))
+        assert store.kmer_code(rid, start, k) == ref.kmer_code(rid, start, k)
+
+
 @pytest.mark.parametrize("name", ["p1.fasta", "p2.fasta", "se.fasta"])
 def test_fasta_matches_reference(name):
     path = str(GOLDEN / "mixed" / name)

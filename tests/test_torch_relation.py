@@ -81,6 +81,17 @@ def test_device_relation_matches_native(mini, dense, case):
         assert fallback == 0
 
 
+def test_fractional_cand_factor_forces_reruns_on_mini(mini):
+    """`mini` never fills cand_cap = chunk (under one candidate a window):
+    a cand_factor below 1 forces exact re-runs of some chunks, as
+    chip_smoke.py's forced overflow does on the goldens."""
+    (store, table), want = mini
+    got = port._device_relation(store, table, device="cpu", chunk=1 << 12,
+                                cand_factor=1 / 6)
+    _assert_equal(got, want)
+    assert 0 < got.stats["fallback_chunks"] < got.stats["chunks"]
+
+
 @pytest.mark.parametrize("backend", ["native", "xla"])
 def test_compute_relation_backends(mini, backend):
     (store, table), want = mini
