@@ -15,7 +15,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    K6's, T1's, K5's and T3's controls, with their tiles, stages and blocks
    at the main path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
-   genome, 30x, 250 bp paired reads, 500 bp insert, seed 42);
+   genome, 30x, 250 bp paired reads, 500 bp insert, seed 42), and the cut
+   set of phases 5 (xla), 9, 10 and 11 (the same make of a 1 Mb genome,
+   CUT_GENOME);
    MinOverlap4BuildGraph from the shipped cfg (30);
 4. kernels: both dual-check kernels (and, past the row, K1's rows route)
    against their plain PyTorch versions
@@ -33,12 +35,14 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
 5. slice, the main path: with the launch counts set to 0, `run_buildg`
    with the device backend (`buildg -backend device`: every candidate
    through the K2 kernel; K1 only for the exact re-run of a chunk that
-   overflows its caps) and then with the xla backend (`buildg -backend
-   xla`: every candidate through the K1 kernel).  The counts are read right
+   overflows its caps) and then with the xla backend on the cut set
+   (`buildg -backend xla`: every candidate through the K1 kernel; the
+   4.6 Mb set until phase 13 needed the time).  The counts are read right
    after those two runs and each must be above 0.  `run_buildg` with the
-   native (C++) backend must give byte-identical files, and the xla
-   relation must equal the device one.  Prints the stage walls, fallback
-   chunks and peak device memory;
+   native (C++) backend on both sets must give byte-identical files (the
+   cut set's are also what phases 9 to 11 are held to), and the xla
+   relation must equal the device relation of the cut set.  Prints the
+   stage walls, fallback chunks and peak device memory;
 6. the device engine with its K1 check (fetch=False: K1's rows route,
    `fused_compare_dual_rows`), its count set to 0 before it: the
    relation must equal the K2 one; then the 8-byte wire rows (`wire64`,
@@ -93,11 +97,12 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    the shipped tests/golden/thresh146/cfg{,_2,_3}.cfg): on the golden
    `mini`, run from its directory, every buildG file and every
    fullsimplify output the reference's goldens hold must be equal; then
-   on phase 3's read set (`--write-par-graph-size 20000`), with the K1
-   and K2 counts set to 0 just before and read just after (K2 must be
-   above 0), its graph must equal phase 5's native files, and every file
-   under assembly/ and the two FinalCombined files must equal `simplify`
-   over those native files.  Prints the buildG and fullsimplify walls,
+   on the cut set (`--write-par-graph-size 20000`; the 4.6 Mb set until
+   phase 13 needed the time), with the K1 and K2 counts set to 0 just
+   before and read just after (K2 must be above 0), its graph must equal
+   phase 5's native files of the cut set, and every file under assembly/
+   and the two FinalCombined files must equal `simplify` over those
+   native files.  Prints the buildG and fullsimplify walls,
    each `clock` stage, the host's peak RSS during the run (sampled every
    10 ms, after the heap earlier phases freed is returned to the OS) and
    at its start, the contigs' and scaffolds' counts and N50 from the port's
@@ -110,17 +115,18 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    equal to the single-device buildG's, the supersteps through K1's rows
    route (the column kernel 0 outside the forced overflow); the golden
    `mini` through `buildg -n 4` and `-n 4 -rma`, equal to the reference's
-   outputs; then phase 3's set through `buildg -n 4 -rma` and `buildg -n
-   4` (`-w 20000`), each with the K1 (rows route and column kernel) and K2
-   counts set to 0 just before and read just after (the rows route above
-   0, the column kernel, the rows route's timing designs and K2 0) and its
-   files equal to phase 5's native files.  Prints each run's wall (no
+   outputs; then the cut set (1 Mb; the 4.6 Mb set until phase 13 needed
+   the time) through `buildg -n 4 -rma` and `buildg -n 4` (`-w 20000`),
+   each with the K1 (rows route and column kernel) and K2 counts set to 0
+   just before and read just after (the rows route above 0, the column
+   kernel, the rows route's timing designs and K2 0) and its files equal
+   to phase 5's native files of the cut set.  Prints each run's wall (no
    profiler runs during the timed runs) and `clock` stages, chunks and
    fallback chunks, the bytes a shard moves through the collectives a
    superstep (`tools.bench_scaling.superstep_bytes`) and the peak device
-   memory; then three supersteps of each engine under torch.profiler and
-   cProfile (the device's busy time and idle share, device operations and
-   host functions by time).  Last, K1 at the dist path's shape on shard
+   memory; then three supersteps of each engine on phase 3's 4.6 Mb set
+   under torch.profiler and cProfile (the device's busy time and idle
+   share, device operations and host functions by time).  Last, K1 at the dist path's shape on shard
    0's grid of the first dist-mem superstep (the rows route's inputs,
    captured): the rows route, run once with host synchronisation made an
    error, equal to its plain version, to the column route (the engine's
@@ -140,9 +146,10 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    `clock` stages, wall and peak device memory after `multiproc.main`
    returns.  The golden `mini` in both modes, rank 0's
    files equal to the reference's outputs; NCCL, the default backend, must
-   refuse the two ranks on one card (no switch to gloo); then phase 3's set
-   through `-rma` and the replicated mode (`-w 20000`), rank 0's files
-   equal to phase 5's native files.  In every run each rank's rows route
+   refuse the two ranks on one card (no switch to gloo); then the cut set
+   (1 Mb; the 4.6 Mb set until phase 13 needed the time) through `-rma`
+   and the replicated mode (`-w 20000`), rank 0's files equal to phase 5's
+   native files of the cut set.  In every run each rank's rows route
    above 0, its column kernel, K2 and the route's designs 0, the ranks'
    chunk counts equal and rank 1's directory empty; a rank that fails or
    outlives its timeout fails the smoke.  Last, `assemble -ecc -backend
@@ -164,8 +171,20 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    against the bound and floors of `rows_work`; `buildg -backend device`
    on `mini` under DISCO_TPU_TORCH_TRACE (the CLI's trace wrap) with files
    equal to the untraced run's and a Chrome trace that names K2's kernel;
-   and `python -m disco_tpu_torch.tools.bench_e2e --genome-len 1000000`
-   with outputs_identical true.
+13. scale, the main path at the size its users run: `python -m
+   disco_tpu_torch.tools.bench_e2e` on the JAX package's verified set
+   (100 Mb genome, 25x, 250 bp pairs, 500 bp insert, seed 99: 10,000,000
+   reads, 2,210,000,000 windows at MinOverlap 30), `buildg -backend
+   device` and then `buildg -backend native`, each in a fresh process.
+   The reads must pass 2^23 and the windows 2^31; the device run must
+   choose the 8-byte wire by itself and launch K2 (its child reports the
+   count); every file both runs write must be byte-identical.  Prints the
+   host's MemTotal, the reads, windows, wire, chunks and fallback chunks,
+   K2's launches, each run's wall, `clock` stages and peak host RSS
+   (sampled every 10 ms, as phase 9's), the device run's peak device
+   memory and the seconds the reads took to make.  The device run peaks
+   at some 21 GiB of host memory and the native one at 17 GiB, one after
+   the other (an H100's host, PERF.md section 5).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -198,7 +217,8 @@ Prints the kernels' JSON line (K1 and K2 also with `assemble_launches`,
 phase 9's counts, and `dist_launches`, phase 10's; K1 with
 `multiproc_launches`, phase 11's rows-route launches over its runs and
 ranks, and `multiproc_rank_launches` by run and rank; K2 with
-`ecc_launches`, phase 11's `assemble -ecc`; K1 with its rows
+`ecc_launches`, phase 11's `assemble -ecc`, and `scale_launches`, phase
+13's device run; K1 with its rows
 route's `dist_rows_*` times, bound, sector floor, live lanes and launches
 at the dist shape, and the column route and column kernels there; K1
 with phase 12's `grid_launches` and its rows route's `grid_rows_*` times,
@@ -218,7 +238,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -266,6 +285,11 @@ PTXAS_KERNELS = {
 # or below their wrappers' host work back to back (K1, K2 and K7, with no
 # control, are held in their own timing)
 HELD = ("K6", "T3")
+# phase 5's xla buildG, phase 9's assemble and the builds of phases 10 and
+# 11 (`buildg -n 4 [-rma]`, two ranks) run on a 1 Mb set of phase 3's make
+# (30x, 250 bp, insert 500, seed 42) instead of the 4.6 Mb set, to leave
+# phase 13 room in the smoke's time limit
+CUT_GENOME = 1_000_000
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
@@ -302,18 +326,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
-
-
-class StageWalls(logging.Handler):
-    """Collects the (stage, seconds) records of utils.logging.clock."""
-
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.walls = []
-
-    def emit(self, record):
-        if isinstance(record.msg, str) and record.msg.startswith("<<<"):
-            self.walls.append((record.args[0], float(record.args[1])))
 
 
 def cuda_ms(fn, reps, hold=False):
@@ -1783,51 +1795,19 @@ def timed_calls(module, name, walls):
         setattr(module, name, real)
 
 
-class RssPeak:
-    """While open, a thread reads this process's resident set from
-    /proc/self/statm every `period` seconds and keeps the largest (the
-    kernel's own peak, VmHWM, cannot be reset on every host)."""
-
-    def __init__(self, period: float = 0.01):
-        self.period = period
-        self.start = self.peak = 0
-        self._stop = threading.Event()
-        self._page = os.sysconf("SC_PAGE_SIZE")
-
-    def _sample(self) -> int:
-        with open("/proc/self/statm") as f:
-            rss = int(f.read().split()[1]) * self._page
-        self.peak = max(self.peak, rss)
-        return rss
-
-    def _run(self):
-        while not self._stop.wait(self.period):
-            self._sample()
-
-    def __enter__(self):
-        self.start = self._sample()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join(timeout=10)
-        check(not self._thread.is_alive(), "the RSS sampler did not stop")
-        self._sample()
-
-
-def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
+def assemble_phase(tmp: pathlib.Path, cut: pathlib.Path, walls):
     """`assemble -backend device` through the command line, in this
     process: on the golden `mini` against the reference's outputs, then on
-    the full read set with the K1 and K2 counts set to 0 just before, its
-    graph against phase 5's native files and its assembly against
-    `simplify` over those native files.  Returns the launches."""
+    the cut set (`cut`, CUT_GENOME) with the K1 and K2 counts set to 0 just
+    before, its graph against phase 5's native files of the cut set and
+    its assembly against `simplify` over those native files.  Returns the
+    launches."""
     import torch
     from disco_tpu_torch import cli
     from disco_tpu_torch.buildg import pipeline
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.simplify import driver
+    from disco_tpu_torch.tools.bench_e2e import RssPeak
     from disco_tpu_torch.utils.logging import malloc_trim
     from disco_tpu_torch.utils.stats import assembly_stats
 
@@ -1853,7 +1833,7 @@ def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
         f"reference's buildG ({len(OUTPUTS)} files) and fullsimplify "
         f"({len(SIMPLIFY_OUTPUTS)} files) outputs")
 
-    # the full read set, the counts set to 0 just before; the heap that
+    # the cut set, the counts set to 0 just before; the heap that
     # earlier phases freed goes back to the OS first, so that the resident
     # set at the start is what the run inherits
     out = tmp / "assemble"
@@ -1867,7 +1847,7 @@ def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
     t0 = time.perf_counter()
     with timed_calls(pipeline, "run_buildg", calls), \
             timed_calls(driver, "run_fullsimplify", calls), RssPeak() as rss:
-        rc = cli.main(["assemble", "-inP", str(fasta), "-d", str(out),
+        rc = cli.main(["assemble", "-inP", str(cut), "-d", str(out),
                        "-o", "E", *CFG_ARGS, "-backend", "device",
                        "--write-par-graph-size", "20000"])
         torch.cuda.synchronize()
@@ -1880,16 +1860,16 @@ def assemble_phase(tmp: pathlib.Path, fasta: pathlib.Path, walls):
     check(launches["K2"] > 0, "assemble -backend device never launched K2")
     for suffix in OUTPUTS:
         check((out / "graph" / f"E{suffix}").read_bytes()
-              == (tmp / f"native{suffix}").read_bytes(),
+              == (tmp / f"native_cut{suffix}").read_bytes(),
               f"assemble's graph E{suffix} differs from the native buildG's")
 
-    # simplify over phase 5's native graph
+    # simplify over phase 5's native graph of the cut set
     simp = tmp / "simplify"
     simp.mkdir()
     t0 = time.perf_counter()
-    check(cli.main(["simplify", "-fpi", str(fasta),
-                    "-e", str(tmp / "native_0_parGraph.txt"),
-                    "-crd", str(tmp / "native_0_containedReads.txt"),
+    check(cli.main(["simplify", "-fpi", str(cut),
+                    "-e", str(tmp / "native_cut_0_parGraph.txt"),
+                    "-crd", str(tmp / "native_cut_0_containedReads.txt"),
                     "-o", str(simp / "E"), *CFG_ARGS]) == 0,
           "simplify exited non-zero")
     t_simp = time.perf_counter() - t0
@@ -2217,10 +2197,12 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
     return dist_rows_check(t1, r1, t2, r2, tuple(geo), hit_cap)
 
 
-def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
-               n_reads: int, wp: int):
-    """Phase 10.  Returns K1's and K2's launches on the full set (both
-    runs) and K1's timing at the dist shape."""
+def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, cut: pathlib.Path,
+               min_ovl: int, walls, n_reads: int, wp: int):
+    """Phase 10.  Returns K1's and K2's launches on the cut set (`cut`,
+    CUT_GENOME, of n_reads reads and rows of wp words; both runs) and K1's
+    timing at the dist shape, on the supersteps of the full set
+    (`fasta`)."""
     import torch
     from disco_tpu_torch import cli
     from disco_tpu_torch.buildg.pipeline import run_buildg
@@ -2293,7 +2275,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
         say(f"dist: golden mini: buildg -n {n}{flag}: {wall:.2f} s, "
             "byte-identical to the reference outputs")
 
-    # ---- the full set: buildg -n 4 -rma, then buildg -n 4 ----------------
+    # ---- the cut set: buildg -n 4 -rma, then buildg -n 4 -----------------
     launches = {"K1": 0, "K2": 0, "K1_rows": 0}
     for extra in (["-rma"], []):
         flag = "".join(" " + x for x in extra)
@@ -2306,7 +2288,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
         fk.fused_compare_dual_fetch.launches = 0
         fk.fused_compare_dual_rows.launches = 0
         k1d.design.launches = 0
-        argv = ["buildg", "-pe", str(fasta), "-f", str(prefix), "-p",
+        argv = ["buildg", "-pe", str(cut), "-f", str(prefix), "-p",
                 str(CFG_DIR / "cfg.cfg"), "-w", "20000", "-n", str(n), *extra]
         t0 = time.perf_counter()
         with sharded_record(builder, rec):
@@ -2331,7 +2313,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
         launches["K1_rows"] += k1_rows
         for suffix in OUTPUTS:
             check((tmp / f"{prefix.name}{suffix}").read_bytes()
-                  == (tmp / f"native{suffix}").read_bytes(),
+                  == (tmp / f"native_cut{suffix}").read_bytes(),
                   f"buildg -n {n}{flag}: {suffix} differs from the native "
                   "buildG's")
         hit_cap, chunk, route_cap = rec["plan"]
@@ -2341,7 +2323,7 @@ def dist_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int, walls,
                                     dist_mem, fetch_cap)
         stats = rec["stats"]
         mode = "dist-mem (-rma)" if dist_mem else "replicated"
-        say(f"dist: buildg -n {n}{flag} ({mode}) on the full set: "
+        say(f"dist: buildg -n {n}{flag} ({mode}) on the cut set: "
             f"{wall:.2f} s: " + ", ".join(f"{st} {t:.2f} s"
                                           for st, t in stages))
         say(f"dist: {mode}: files byte-identical to the native buildG's; "
@@ -2522,9 +2504,10 @@ def multiproc_run(tmp, tag, argv, cwd, want_dir, want_name):
     return [rec["rows"] for rec in recs]
 
 
-def multiproc_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int):
-    """Phase 11.  Returns the rows-route launches of every run's ranks and
-    K2's launches in the `assemble -ecc -backend device` run."""
+def multiproc_phase(tmp: pathlib.Path, cut: pathlib.Path, min_ovl: int):
+    """Phase 11, its two-rank builds on the cut set (`cut`, CUT_GENOME).
+    Returns the rows-route launches of every run's ranks and K2's launches
+    in the `assemble -ecc -backend device` run."""
     import torch
     from disco_tpu_torch import cli
     from disco_tpu_torch.overlap import fused_kernel as fk
@@ -2546,12 +2529,12 @@ def multiproc_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int):
           "with NCCL's duplicate-GPU error")
     say("multiproc: NCCL (the default backend) with two ranks on one card: "
         "both ranks failed with NCCL's duplicate-GPU error")
-    # ---- the full set, -rma then replicated --------------------------------
+    # ---- the cut set, -rma then replicated ---------------------------------
     for extra in (["-rma"], []):
-        tag = "full" + "".join(extra)
+        tag = "cut" + "".join(extra)
         launches[tag] = multiproc_run(
-            tmp, tag, ["-pe", str(fasta), "-m-ovl", str(min_ovl), "-w",
-                       "20000", *extra], tmp, tmp, "native")
+            tmp, tag, ["-pe", str(cut), "-m-ovl", str(min_ovl), "-w",
+                       "20000", *extra], tmp, tmp, "native_cut")
     say(f"multiproc: card {card_line()}")
 
     # ---- assemble -ecc: device against native ------------------------------
@@ -2599,7 +2582,7 @@ def multiproc_phase(tmp: pathlib.Path, fasta: pathlib.Path, min_ovl: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the hit-cap grid engine, the CLI's trace wrap and bench_e2e
+# phase 12: the hit-cap grid engine and the CLI's trace wrap
 # ---------------------------------------------------------------------------
 GRID_HIT_CAP = 16      # disco_tpu's DeviceOverlapEngine default
 GRID_CHUNK = 1 << 21   # disco_tpu's run_packed_chunked default
@@ -2677,8 +2660,8 @@ def grid_agree(eng, part):
 def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
     """The hit-cap grid engine (overlap/device.py's run* steps, K1's rows
     route) on the full set, against phase 5's relation; a chunk against the
-    CPU; K1's rows route at the grid's shape; the CLI's trace wrap; and
-    bench_e2e.  Returns K1's grid_* entries."""
+    CPU; K1's rows route at the grid's shape; the CLI's trace wrap.
+    Returns K1's grid_* entries."""
     import numpy as np
     import torch
     from disco_tpu_torch.cli import TRACE_ENV
@@ -2832,19 +2815,77 @@ def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
         f"the untraced run's and the goldens; {traces[0].name} "
         f"({len(text)} B, {len(events)} events) names "
         "dual_compare_fetch_kernel")
+    return out
 
-    # ---- bench_e2e -------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 13: the main path at the size its users run
+# ---------------------------------------------------------------------------
+# the JAX package's verified set (scale100/PARITY_STATUS.md): 100 Mb genome,
+# 25x, 250 bp pairs, 500 bp insert, seed 99; 10,000,000 reads
+SCALE_SET = ("--genome-len", "100000000", "--coverage", "25", "--read-len",
+             "250", "--insert", "500", "--seed", "99")
+SCALE_TIMEOUT = 900     # seconds for the data and both buildG runs
+SCALE_FILES = ("_0_containedReads.txt", "_0_parGraph.txt", "_0_startRead.txt",
+               "_CheckpointInfo.txt", "_ReadIDMap.txt")
+
+
+def meminfo(*names):
+    """The named /proc/meminfo fields, in bytes."""
+    with open("/proc/meminfo") as f:
+        fields = dict(line.split(":", 1) for line in f)
+    return {n: int(fields[n].split()[0]) * 1024 for n in names}
+
+
+def scale_phase(min_ovl: int):
+    """`buildg -backend device` and `buildg -backend native` on SCALE_SET,
+    each in a fresh process through tools/bench_e2e.py, at the smoke's
+    MinOverlap: past 2^23 reads (the 8-byte wire, chosen by the read count)
+    and 2^31 windows.  Every file both runs write must be equal.  Returns
+    K2's launches in the device run."""
+    mem = meminfo("MemTotal", "MemAvailable")
+    say(f"scale: host MemTotal {mem['MemTotal'] / 2**30:.1f} GiB, "
+        f"MemAvailable {mem['MemAvailable'] / 2**30:.1f} GiB")
     t0 = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, "-m", "disco_tpu_torch.tools.bench_e2e",
-         "--genome-len", "1000000"], cwd=ROOT, capture_output=True,
-        text=True, timeout=600)
-    check(res.returncode == 0, f"bench_e2e: {res.stderr[-2000:]}")
+        [sys.executable, "-m", "disco_tpu_torch.tools.bench_e2e", *SCALE_SET,
+         "--min-overlap", str(min_ovl), "--backends", "device,native"],
+        cwd=ROOT, capture_output=True, text=True, timeout=SCALE_TIMEOUT)
+    check(res.returncode == 0, f"bench_e2e at 100 Mb exited "
+                               f"{res.returncode}: {res.stderr[-3000:]}")
     line = json.loads(res.stdout.strip().splitlines()[-1])
-    check(line["outputs_identical"] is True, f"bench_e2e: {line}")
-    say(f"grid: bench_e2e --genome-len 1000000 in "
-        f"{time.perf_counter() - t0:.2f} s: {json.dumps(line)}")
-    return out
+    dev, nat = line["runs"]["device"], line["runs"]["native"]
+    rel = dev["relation"]
+    check(line["outputs_identical"] is True,
+          "the device and native buildG files differ at 100 Mb")
+    check(tuple(line["files"]) == SCALE_FILES,
+          f"buildG wrote {line['files']}")
+    check(dev["reads"] > 1 << 23, f"{dev['reads']} reads: not past 2^23")
+    check(dev["windows"] > 1 << 31, f"{dev['windows']} windows: not past "
+                                    "2^31")
+    check(rel["wire_bytes"] == 8, f"the {rel['wire_bytes']}-byte wire at "
+                                  f"{dev['reads']} reads")
+    k2 = dev["launches"]["K2"]
+    check(k2 > 0, "the device buildG at 100 Mb never launched K2")
+    check(nat["launches"] == {"K1": 0, "K2": 0},
+          f"the native buildG launched {nat['launches']}")
+    say(f"scale: {dev['reads']} reads (2^23 = {1 << 23}), {dev['windows']} "
+        f"windows (2^31 = {1 << 31}); the {rel['wire_bytes']}-byte wire, "
+        f"unforced; {rel['chunks']} chunks, {rel['fallback_chunks']} "
+        f"fallback; {dev['rows']} kept rows; K2 {k2} launches, K1 "
+        f"{dev['launches']['K1']}; the reads made in {line['data_s']:.2f} s")
+    say(f"scale: every file buildG writes is byte-identical between -backend "
+        f"device and -backend native: {', '.join(line['files'])}")
+    for name, run in (("device", dev), ("native", nat)):
+        say(f"scale: buildg -backend {name} {line[name]:.2f} s in a fresh "
+            f"process, host peak RSS {run['rss_peak_bytes'] / 2**20:.0f} MiB "
+            f"({run['rss_start_bytes'] / 2**20:.0f} MiB at the command's "
+            "start, sampled every 10 ms): " + ", ".join(
+                f"{st} {t:.2f} s" for st, t in run["stages"]))
+    say(f"scale: the device run's peak device memory "
+        f"{dev['device_peak_bytes'] / 2**20:.1f} MiB; phase "
+        f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
+    return k2
 
 
 # ---------------------------------------------------------------------------
@@ -2875,6 +2916,7 @@ def main(argv=None) -> int:
     from disco_tpu_torch.overlap.relation import _device_relation
     from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
     from disco_tpu_torch.tools import exp_mxu_fetch as mf
+    from disco_tpu_torch.tools.bench_e2e import StageWalls
 
     walls = StageWalls()
     tlog = logging.getLogger("disco_tpu_torch")
@@ -2935,13 +2977,18 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         tmp = pathlib.Path(tmpdir)
         # ---- 3. data ---------------------------------------------------
+        def make_set(path, genome_len):
+            subprocess.run(
+                [sys.executable, str(ROOT / "tools" / "make_testdata.py"),
+                 str(path), "--genome-len", str(genome_len), "--coverage",
+                 str(args.coverage), "--read-len", "250", "--insert", "500",
+                 "--seed", "42"], check=True, stdout=subprocess.DEVNULL)
+
         fasta = tmp / "reads.fasta"
+        cut = tmp / "cut.fasta"      # CUT_GENOME
         t0 = time.perf_counter()
-        subprocess.run(
-            [sys.executable, str(ROOT / "tools" / "make_testdata.py"),
-             str(fasta), "--genome-len", str(args.genome_len), "--coverage",
-             str(args.coverage), "--read-len", "250", "--insert", "500",
-             "--seed", "42"], check=True, stdout=subprocess.DEVNULL)
+        make_set(fasta, args.genome_len)
+        make_set(cut, CUT_GENOME)
         min_ovl = _cfg_min_overlap(
             str(ROOT / "tests" / "golden" / "thresh146" / "cfg.cfg"))
         check(min_ovl == 30, f"MinOverlap4BuildGraph = {min_ovl}")
@@ -2949,38 +2996,40 @@ def main(argv=None) -> int:
         store = ReadStore.from_files([str(fasta)], [], min_ovl)
         table = FingerprintTable.build(store, min_ovl - 1)
         n_win = int(store.lengths.sum()) - store.n_reads * table.k
-        n_reads, wp = store.n_reads, store.packed.shape[1]
         say(f"data: {args.genome_len} bp genome, {args.coverage}x, 250 bp: "
             f"{store.n_reads} reads, {n_win} windows, {len(table.keys)} "
             f"table entries (made in {t1 - t0:.2f} s, loaded in "
             f"{time.perf_counter() - t1:.2f} s)")
 
         # ---- 4. kernels ------------------------------------------------
+        t0 = time.perf_counter()
         med, errs, bounds = kernel_phase(store, table)
         golden_phase(tmp)
+        say(f"kernels: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 5. slice: the main path, with the launch counts ------------
-        def buildg(backend):
+        def buildg(backend, reads, tag):
             walls.walls.clear()
             t0 = time.perf_counter()
-            _, rel, _ = run_buildg([str(fasta)], [], str(tmp / backend),
-                                   min_overlap=min_ovl,
-                                   write_par_graph_size=20000,
-                                   backend=backend, device=DEVICE)
+            store, rel, _ = run_buildg([str(reads)], [], str(tmp / tag),
+                                       min_overlap=min_ovl,
+                                       write_par_graph_size=20000,
+                                       backend=backend, device=DEVICE)
             torch.cuda.synchronize()
-            return rel, time.perf_counter() - t0, list(walls.walls)
+            return store, rel, time.perf_counter() - t0, list(walls.walls)
 
         def counts():
             return (fk.fused_compare_dual.launches,
                     fk.fused_compare_dual_fetch.launches)
 
+        t_slice = time.perf_counter()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fk.fused_compare_dual.launches = 0
         fk.fused_compare_dual_fetch.launches = 0
-        rel_dev, t_dev, dev_walls = buildg("device")
+        _, rel_dev, t_dev, dev_walls = buildg("device", fasta, "device")
         k1_dev, k2_dev = counts()
-        rel_xla, t_xla, xla_walls = buildg("xla")
+        _, rel_xla, t_xla, xla_walls = buildg("xla", cut, "xla_cut")
         k1_all, k2_all = counts()
         launches = {"K1": k1_all, "K2": k2_all}
         peak = torch.cuda.max_memory_allocated()
@@ -2993,26 +3042,40 @@ def main(argv=None) -> int:
         check(k2_dev > 0, "the device buildG never launched K2")
         check(k2_all == k2_dev, "the xla buildG launched K2")
         check(k1_all > k1_dev, "the xla buildG never launched K1")
-        check_same_relation(rel_xla, rel_dev, "xla", "device")
 
-        _, t_nat, nat_walls = buildg("native")
-        for suffix in OUTPUTS:
-            want = (tmp / ("native" + suffix)).read_bytes()
-            check(len(want) > 0, f"empty {suffix}")
-            for backend in ("device", "xla"):
-                check((tmp / (backend + suffix)).read_bytes() == want,
-                      f"{backend} and native {suffix} differ")
-        say("slice: device, xla and native buildG outputs byte-identical: "
-            + ", ".join(f"{s} ({(tmp / ('native' + s)).stat().st_size} B)"
-                        for s in OUTPUTS))
+        _, _, t_nat, nat_walls = buildg("native", fasta, "native")
+        # the cut set's native files, which the xla run and phases 9 to 11
+        # are held to
+        cut_store, _, _, _ = buildg("native", cut, "native_cut")
+        cut_reads, cut_wp = cut_store.n_reads, cut_store.packed.shape[1]
+        for tag, want in (("device", "native"), ("xla_cut", "native_cut")):
+            for suffix in OUTPUTS:
+                data = (tmp / (want + suffix)).read_bytes()
+                check(len(data) > 0, f"empty {want}{suffix}")
+                check((tmp / (tag + suffix)).read_bytes() == data,
+                      f"{tag} and {want} {suffix} differ")
+        say("slice: the device buildG's outputs byte-identical to native's "
+            "on phase 3's set, the xla buildG's on the cut set: " + ", ".join(
+                f"{s} ({(tmp / ('native' + s)).stat().st_size} B, cut "
+                f"{(tmp / ('native_cut' + s)).stat().st_size} B)"
+                for s in OUTPUTS))
+        rel_cut = _device_relation(
+            cut_store, FingerprintTable.build(cut_store, min_ovl - 1),
+            device=DEVICE)
+        check_same_relation(rel_xla, rel_cut, "xla", "device")
+        say(f"slice: the cut set, {CUT_GENOME} bp, {cut_reads} reads: the "
+            f"xla relation == the device relation ({len(rel_cut)} rows)")
+        del cut_store, rel_cut
         for name, w, total in (("device", dev_walls, t_dev),
-                               ("xla", xla_walls, t_xla),
+                               ("xla (the cut set)", xla_walls, t_xla),
                                ("native", nat_walls, t_nat)):
             say(f"slice: {name} buildG {total:.2f} s: " + ", ".join(
                 f"{s} {t:.2f} s" for s, t in w))
-        say(f"slice: peak device memory {peak / 2**20:.1f} MiB")
+        say(f"slice: peak device memory {peak / 2**20:.1f} MiB; phase "
+            f"{time.perf_counter() - t_slice:.2f} s")
 
         # ---- 6. the device engine with its K1 check ----------------------
+        t_engine = time.perf_counter()
         fk.fused_compare_dual_rows.launches = 0
         t0 = time.perf_counter()
         rel_k1 = _device_relation(store, table, device=DEVICE, fetch=False)
@@ -3038,6 +3101,7 @@ def main(argv=None) -> int:
             f"({len(rel_dev)} rows) in {t_w64:.2f} s, against the 4-byte "
             f"run's overlapRelation {dict(dev_walls)['overlapRelation']:.2f}"
             f" s; fallback chunks 0 of {rel_w64.stats['chunks']}")
+        say(f"engine: phase {time.perf_counter() - t_engine:.2f} s")
         if args.profile:
             profile_phase(store, table)
         del rel_xla, rel_k1, rel_w64     # store, table, rel_dev: phase 12
@@ -3057,19 +3121,20 @@ def main(argv=None) -> int:
 
         # ---- 9. assemble: reads to contigs and scaffolds ----------------
         t0 = time.perf_counter()
-        a_launches = assemble_phase(tmp, fasta, walls)
+        a_launches = assemble_phase(tmp, cut, walls)
         say(f"assemble: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 10. the distributed buildG ----------------------------------
         t0 = time.perf_counter()
-        d_launches, d_k1 = dist_phase(tmp, fasta, min_ovl, walls, n_reads, wp)
+        d_launches, d_k1 = dist_phase(tmp, fasta, cut, min_ovl, walls,
+                                      cut_reads, cut_wp)
         say(f"dist: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 11. one process per rank -------------------------------------
         gc.collect()
         torch.cuda.empty_cache()     # the ranks' room on the card
         t0 = time.perf_counter()
-        mp_launches, ecc_k2 = multiproc_phase(tmp, fasta, min_ovl)
+        mp_launches, ecc_k2 = multiproc_phase(tmp, cut, min_ovl)
         say(f"multiproc: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 12. the hit-cap grid engine -----------------------------------
@@ -3079,6 +3144,11 @@ def main(argv=None) -> int:
         g_k1 = grid_phase(tmp, store, table, rel_dev)
         del store, table, rel_dev
         say(f"grid: phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 13. the main path at the size its users run -------------------
+        gc.collect()
+        torch.cuda.empty_cache()     # the child's room on the card
+        s_k2 = scale_phase(min_ovl)
 
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
@@ -3125,7 +3195,8 @@ def main(argv=None) -> int:
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
              assemble_launches=a_launches["K2"],
-             dist_launches=d_launches["K2"], ecc_launches=ecc_k2),
+             dist_launches=d_launches["K2"], ecc_launches=ecc_k2,
+             scale_launches=s_k2),
     ] + [entry(k, name, WINDOW_SOURCE, replaces, v_launches[k], v_errs,
                v_med, v_bounds[k], v_floors)
          for k, name, replaces in SINGLE_KERNELS] + [

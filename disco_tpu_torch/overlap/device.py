@@ -410,12 +410,33 @@ def device_overlap_packed(packed, packed_all, lengths, starts, tmeta, keys,
     return data, _narrow32(meta)
 
 
+def window_offsets(lengths, k: int) -> np.ndarray:
+    """(n_reads + 1,) int64: the global index of each read's first window
+    j in [0, len - k), and last the number of windows of the set."""
+    n_win = np.asarray(lengths, np.int64) - k
+    if (n_win <= 0).any():
+        raise ValueError("read shorter than min overlap")
+    return np.concatenate([np.zeros(1, np.int64), np.cumsum(n_win)])
+
+
+def chunk_windows(woff: np.ndarray, s: int, e: int):
+    """(read, j), int64, of the global windows [s, e) (s < e), from the
+    reads' window offsets `woff` (`window_offsets`): O(e - s) work, whatever
+    s is."""
+    r0, r1 = np.searchsorted(woff, [s, e - 1], side="right") - 1
+    first = woff[r0:r1 + 1]
+    n = np.diff(np.clip(woff[r0:r1 + 2], s, e))
+    read = np.repeat(np.arange(r0, r1 + 1, dtype=np.int64), n)
+    return read, np.arange(s, e, dtype=np.int64) - np.repeat(first, n)
+
+
 class DeviceOverlapEngine:
     """Host wrapper: puts the read store and the table on `device` (default:
     the CUDA card; without one it raises) and runs the overlap steps over
-    window chunks: the dense steps (`run_dense*`) and the hit-cap grid
-    steps of `hit_cap` slots a window (`run`, `run_compact`,
-    `run_packed` and their chunked forms).
+    window chunks: the dense steps (`run_dense*`; over every window of the
+    store, each chunk's windows made as it goes, `dense_window_chunks`) and
+    the hit-cap grid steps of `hit_cap` slots a window (`run`,
+    `run_compact`, `run_packed` and their chunked forms).
 
     `fetch` selects the dense steps' check: True runs K2, which reads
     read1's rows from packed_all; False runs K1's rows route, which reads
@@ -499,24 +520,55 @@ class DeviceOverlapEngine:
                              starts, chunk)
 
     def _chunked(self, step, starts, chunk):
-        """Yield (n_real, *step(part)) per chunk, the last chunk padded
-        with repeats of its final window, through a 1-deep dispatch
-        pipeline: chunk i+1 is enqueued before chunk i is handed out."""
-        q = len(starts)
+        """Yield (n_real, *step(part)) per chunk of `starts`, the last
+        chunk padded with repeats of its final window."""
+        parts = (starts[s:s + chunk] for s in range(0, len(starts), chunk))
+        return self._pipelined(step, ((len(p), p, chunk) for p in parts))
+
+    def _pipelined(self, step, parts):
+        """Yield (head, *step(padded part)) for each (head, part, chunk) of
+        `parts`, a part shorter than `chunk` padded with repeats of its
+        final window, through a 1-deep dispatch pipeline: chunk i+1 is
+        enqueued before chunk i is handed out."""
         pending = None
-        for s in range(0, q, chunk):
-            e = min(s + chunk, q)
-            part = starts[s:e]
-            if e - s < chunk:
+        for head, part, chunk in parts:
+            if len(part) < chunk:
                 part = np.concatenate(
-                    [part, np.full(chunk - (e - s), part[-1], part.dtype)])
+                    [part, np.full(chunk - len(part), part[-1], part.dtype)])
             res = step(part)
             self.stats["chunks"] += 1
             if pending is not None:
                 yield pending
-            pending = (e - s,) + tuple(res)
+            pending = (head,) + tuple(res)
         if pending is not None:
             yield pending
+
+    def dense_window_chunks(self, chunk: int = 1 << 20, cand_cap: int = None,
+                            out_cap: int = None, rbits: int = None):
+        """The dense steps over every window of the store, each chunk's
+        windows made here from the reads' cumulative window counts
+        (`chunk_windows`): no array of one entry a window over the whole
+        set is built.  Yield ((read, j), *step) per chunk of `chunk`
+        windows, (read, j) the chunk's real windows (int64): the 4-byte
+        wire (`run_dense32`, (word, esc, meta)) with `rbits`, else the
+        8-byte one (`run_dense`, (data, meta))."""
+        cand_cap = cand_cap or 4 * chunk
+        out_cap = out_cap or chunk
+        woff = window_offsets(self.store.lengths, self.k)
+        q = int(woff[-1])
+
+        def parts():
+            for s in range(0, q, chunk):
+                read, j = chunk_windows(woff, s, min(s + chunk, q))
+                yield (read, j), read * self.store.max_len + j, chunk
+
+        if rbits is None:
+            def step(part):
+                return self.run_dense(part, cand_cap, out_cap)
+        else:
+            def step(part):
+                return self.run_dense32(part, cand_cap, out_cap, rbits)
+        return self._pipelined(step, parts())
 
     def run_dense32_chunked(self, starts: np.ndarray, chunk: int = 1 << 20,
                             cand_cap: int = None, out_cap: int = None,

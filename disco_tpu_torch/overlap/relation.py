@@ -73,10 +73,8 @@ class OverlapRelation:
 
 def window_codes(store: ReadStore, k: int):
     """Return (qread, qj, qcode): one query per (read, window j in [0,len-k)).
-    Codes are the first min(k,32) bases of each window, packed uint64,
-    computed with a three-word funnel over the packed words (the same
-    formula as the device pipeline, overlap/device.py)."""
-    kk = min(k, 32)
+    Codes are the first min(k,32) bases of each window, packed uint64
+    (`window_codes_at`)."""
     n = store.n_reads
     lens = store.lengths.astype(np.int64)
     n_win = lens - k  # windows j in [0, len-k)
@@ -87,7 +85,15 @@ def window_codes(store: ReadStore, k: int):
     offs = np.arange(int(cum[-1]), dtype=np.int64) - np.repeat(
         cum - n_win, n_win)
     qj = offs.astype(np.int32)
+    return qread, qj, window_codes_at(store, qread, qj, k)
 
+
+def window_codes_at(store: ReadStore, qread, qj, k: int) -> np.ndarray:
+    """The uint64 codes of the given windows (read qread, start qj): the
+    first min(k,32) bases, computed with a three-word funnel over the
+    packed words (the same formula as the device pipeline,
+    overlap/device.py)."""
+    kk = min(k, 32)
     words = store.packed
     wlim = words.shape[1] - 1
     wbase = qj // 16
@@ -99,8 +105,7 @@ def window_codes(store: ReadStore, k: int):
     win = np.where(phase == 0, hi,
                    (hi << phase) | ((w2 >> (np.uint64(31) - phase))
                                     >> np.uint64(1)))
-    qcode = win >> np.uint64(64 - 2 * kk)
-    return qread, qj, qcode
+    return win >> np.uint64(64 - 2 * kk)
 
 
 def default_backend() -> str:
@@ -260,20 +265,57 @@ def _sorted_relation(store: ReadStore, rows: dict, k: int,
         stats=dict(stats or {}))
 
 
+def relation_order(w, fidx2, typ) -> np.ndarray:
+    """The permutation that puts rows in the relation's order: by window,
+    then read2's FILE index, then record type, ties kept in their given
+    order.  `w` is any window index that grows with (r1, j), such as the
+    global window index; the permutation is then np.lexsort((typ, fidx2,
+    j, r1))'s.  One stable sort of one int64 key (w, fidx2, typ), or none
+    when the rows are in order already, as the device's rows are."""
+    w = np.asarray(w, np.int64)
+    fidx2 = np.asarray(fidx2, np.int64)
+    if len(w) == 0:
+        return np.zeros(0, np.int64)
+    fbits = max(int(fidx2.max()).bit_length(), 1)
+    if int(w.max()) >= 1 << (62 - fbits):
+        raise ValueError(f"window index {int(w.max())} and {fbits}-bit file "
+                         "indices do not fit one int64 key")
+    key = (w << (fbits + 1)) | (fidx2 << 1) | np.asarray(typ, np.int64)
+    if (key[1:] >= key[:-1]).all():
+        return np.arange(len(key))
+    return np.argsort(key, kind="stable")
+
+
+def decode_wire64(rows: np.ndarray):
+    """(wi, r2, orient, typ, flags) of 8-byte wire rows, (2, n) int32 (row 0
+    wi | orient << 21 | typ << 23 | flags << 24, row 1 r2:
+    overlap/device.py::device_overlap_dense); r2 is exact up to 2^31 - 1."""
+    w0, r2 = rows
+    return w0 & 0x1FFFFF, r2, (w0 >> 21) & 3, (w0 >> 23) & 1, (w0 >> 24) & 3
+
+
 def _device_relation(store: ReadStore, table: FingerprintTable,
                      chunk: int = None, cand_factor: float = 4, *,
                      rbits: int = None, wire64: bool = False, device=None,
                      fetch: bool = True) -> OverlapRelation:
     """The device overlap phase: the full window scan runs through the
     dense-candidate pipeline (overlap/device.py) in chunks of `chunk`
-    windows (default 2^20 on a CUDA card, 2^14 elsewhere), with hits compacted to 4-byte wire rows
-    (8-byte rows with `wire64`, or when the read id does not fit the 4-byte
-    row).  Chunks whose candidate or hit count exceeds the static caps
-    (cand_factor * chunk, chunk) are re-run exactly by `_xla_rows`; their
-    number is `stats["fallback_chunks"]` of the result.  A cand_factor
-    below 1 forces such re-runs on inputs of fewer candidates than
-    windows.  Output is identical to the native backend: same rows, same
-    (r1, j, bucket-scan) order.
+    windows (default 2^20 on a CUDA card, 2^14 elsewhere), with hits
+    compacted to 4-byte wire rows (8-byte rows with `wire64`, or when the
+    read id does not fit the 4-byte row: from 2^23 reads on).  Chunks whose
+    candidate or hit count exceeds the static caps (cand_factor * chunk,
+    chunk) are re-run exactly by `_xla_rows`, at once and in their place;
+    their number is `stats["fallback_chunks"]` of the result.  A
+    cand_factor below 1 forces such re-runs on inputs of fewer candidates
+    than windows.  Output is identical to the native backend: same rows,
+    same (r1, j, bucket-scan) order.
+
+    The host streams: the engine makes each chunk's windows
+    (`dense_window_chunks`), each chunk's rows are put in relation order as
+    they arrive (`relation_order`), and window codes are made on the host
+    only for the windows of a re-run chunk (`window_codes_at`).  No host
+    array holds an entry a window of the whole set; what grows is the kept
+    rows, 15 B each.  `stats["wire_bytes"]` is the wire row's size.
 
     `rbits` widens the 4-byte row's read field (more escapes; it is never
     narrower than the read ids need).  `fetch` picks the check: K2 (True)
@@ -288,42 +330,47 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
         chunk = 1 << 20 if device.type == "cuda" else 1 << 14
     cand_cap = int(cand_factor * chunk)
     k = table.k
-    qread, qj, qcode = window_codes(store, k)
     eng = DeviceOverlapEngine(store, table, device=device, fetch=fetch)
-    starts = (qread.astype(np.int64) * store.max_len
-              + qj.astype(np.int64))
-
+    fidx = store.file_index
     parts = {name: [] for name in _COLUMNS}
-    fallback_windows = []
 
-    def emit(s, wi, r2, orient, typ, flags):
-        gwi = s + wi
-        parts["r1"].append(qread[gwi])
-        parts["j"].append(qj[gwi])
-        parts["r2"].append(r2.astype(np.int32))
-        parts["orient"].append(orient.astype(np.int8))
-        parts["typ"].append(typ.astype(np.int8))
-        parts["edge_ok"].append((flags & 1).astype(bool))
-        parts["cont_ok"].append((flags & 2).astype(bool))
+    def emit(wi, r1, j, r2, orient, typ, flags):
+        """Append one chunk's rows, `wi` their windows' index in the chunk
+        (non-decreasing), in relation order."""
+        order = relation_order(wi, fidx[r2], typ)
+        for name, col in (("r1", r1), ("j", j), ("r2", r2),
+                          ("orient", orient), ("typ", typ),
+                          ("edge_ok", flags & 1), ("cont_ok", flags & 2)):
+            parts[name].append(col[order].astype(_COLUMNS[name]))
 
-    def overflowed(s, n_real, meta):
-        if int(meta[1]) > cand_cap or int(meta[0]) > chunk:
-            # static-cap overflow: exact re-run of the whole chunk
-            fallback_windows.append(np.arange(s, s + n_real))
-            return True
-        return False
+    def rerun_if_over(read, jj, meta):
+        if int(meta[1]) <= cand_cap and int(meta[0]) <= chunk:
+            return False
+        # static-cap overflow: exact re-run of the whole chunk, codes made
+        # for its windows alone
+        eng.stats["fallback_chunks"] += 1
+        fb = _xla_rows(store, table, read, jj,
+                       window_codes_at(store, read, jj, k),
+                       packed_all=eng.packed_all)
+        starts = read * store.max_len + jj
+        wi = np.searchsorted(starts, fb["r1"].astype(np.int64)
+                             * store.max_len + fb["j"])
+        emit(wi, fb["r1"], fb["j"], fb["r2"], fb["orient"], fb["typ"],
+             fb["edge_ok"] | (fb["cont_ok"].astype(np.int8) << 1))
+        return True
 
-    def collect(s, n_real, data, meta):
+    def hits(read, jj, wi, r2, orient, typ, flags):
+        sel = wi < len(read)  # drop pad-window repeats
+        wi = wi[sel]
+        emit(wi, read[wi], jj[wi], r2[sel], orient[sel], typ[sel],
+             flags[sel])
+
+    def collect(read, jj, data, meta):
         meta = meta.cpu().numpy()          # pull 1: [n_hits, n_candidates]
-        if overflowed(s, n_real, meta):
+        if rerun_if_over(read, jj, meta):
             return
-        rows = data[:, :int(meta[0])].cpu().numpy()  # pull 2: occupied rows
-        w0 = rows[0]
-        wi = w0 & 0x1FFFFF
-        sel = wi < n_real  # drop pad-window repeats
-        w0 = w0[sel]
-        emit(s, wi[sel], rows[1][sel], (w0 >> 21) & 3, (w0 >> 23) & 1,
-             (w0 >> 24) & 3)
+        # pull 2: the occupied rows
+        hits(read, jj, *decode_wire64(data[:, :int(meta[0])].cpu().numpy()))
 
     needed = max(int(store.n_reads).bit_length() + 1, 8)
     rbits = max(rbits or needed, needed)
@@ -331,9 +378,9 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
     wire32 = dbits >= 4 and not wire64
     esc_code = (1 << dbits) - 1
 
-    def collect32(s, n_real, word, esc_stream, meta):
+    def collect32(read, jj, word, esc_stream, meta):
         meta = meta.cpu().numpy()       # pull 1: [n_hits, n_cand, n_esc]
-        if overflowed(s, n_real, meta):
+        if rerun_if_over(read, jj, meta):
             return
         count = int(meta[0])
         w = word[:count].cpu().numpy().view(np.uint32)   # pull 2
@@ -353,34 +400,17 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
             wi = c + np.cumsum(a)
         else:
             wi = c
-        sel = wi < n_real
-        ws = w[sel]
-        r2t = (ws >> np.uint32(dbits + 4)).astype(np.int64)
-        emit(s, wi[sel], r2t >> 1, (ws >> np.uint32(dbits + 2)) & 3,
-             r2t & 1, ((ws >> np.uint32(dbits)) & 3) + 1)
+        r2t = (w >> np.uint32(dbits + 4)).astype(np.int64)
+        hits(read, jj, wi, r2t >> 1, (w >> np.uint32(dbits + 2)) & 3,
+             r2t & 1, ((w >> np.uint32(dbits)) & 3) + 1)
 
-    s = 0
-    if wire32:
-        for n_real, word, esc_stream, meta in eng.run_dense32_chunked(
-                starts, chunk=chunk, cand_cap=cand_cap, out_cap=chunk,
-                rbits=rbits):
-            collect32(s, n_real, word, esc_stream, meta)
-            s += n_real
-    else:
-        for n_real, data, meta in eng.run_dense_chunked(
-                starts, chunk=chunk, cand_cap=cand_cap, out_cap=chunk):
-            collect(s, n_real, data, meta)
-            s += n_real
+    for (read, jj), *res in eng.dense_window_chunks(
+            chunk, cand_cap, chunk, rbits if wire32 else None):
+        (collect32 if wire32 else collect)(read, jj, *res)
 
-    if fallback_windows:
-        eng.stats["fallback_chunks"] = len(fallback_windows)
-        ow = np.concatenate(fallback_windows)
-        fb = _xla_rows(store, table, qread[ow], qj[ow], qcode[ow],
-                       packed_all=eng.packed_all)
-        for name in parts:
-            parts[name].append(fb[name])
-
-    rows = {name: (np.concatenate(parts[name]).astype(dtype, copy=False)
-                   if parts[name] else np.zeros(0, dtype))
+    # one column at a time, each column's parts freed once it is joined
+    rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
+                   else np.zeros(0, dtype))
             for name, dtype in _COLUMNS.items()}
-    return _sorted_relation(store, rows, k, stats=eng.stats)
+    return OverlapRelation(**rows, k=k,
+                           stats=dict(eng.stats, wire_bytes=4 if wire32 else 8))

@@ -4,24 +4,126 @@ tools/make_testdata.py, by default the 4.6 Mb / 30x / 250 bp set with a
 600 bp insert (the counterpart of tools/bench_e2e.py).
 
     python -m disco_tpu_torch.tools.bench_e2e [--genome-len N]
-        [--coverage C] [--backends device,native] [--ref]
+        [--coverage C] [--read-len L] [--insert I] [--seed S]
+        [--min-overlap M] [--backends device,native] [--ref]
 
-Each backend runs `python -m disco_tpu_torch buildg` in a fresh process,
-timed on the host clock from start to exit.  Prints one JSON line: the
-walls by backend, in seconds, and whether every run's _0_parGraph.txt is
-the same.  The device backend needs a CUDA card: without one the tool
-exits non-zero before it makes any data."""
+Each backend runs `buildg` of the port's command line in a fresh process
+(`child_main`), timed on the host clock from start to exit.  Prints one
+JSON line: the walls by backend, in seconds; the seconds the reads took
+to make; whether every file each run wrote (`files`, by suffix) is the
+same in every run; and `runs`, what each port child reported: its peak
+resident set (sampled every 10 ms, `RssPeak`) and at its start, its
+`clock` stages, its K1 and K2 launches, its peak device memory, and, when
+it made the one-pass relation, the reads, the windows, the relation's
+rows and its stats (chunks, fallback chunks, wire row bytes).  The device backend
+needs a CUDA card: without one the tool exits non-zero before it makes
+any data."""
 import argparse
 import json
+import logging
 import os
 import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 REF_BUILDG = ROOT / "refbuild" / "buildG"
+CHILD = ("import sys; from disco_tpu_torch.tools.bench_e2e import "
+         "child_main; sys.exit(child_main(sys.argv[1], sys.argv[2:]))")
+
+
+class RssPeak:
+    """While open, a thread reads this process's resident set from
+    /proc/self/statm every `period` seconds and keeps the largest (the
+    kernel's own peak, VmHWM, cannot be reset on every host)."""
+
+    def __init__(self, period: float = 0.01):
+        self.period = period
+        self.start = self.peak = 0
+        self._stop = threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self) -> int:
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * self._page
+        self.peak = max(self.peak, rss)
+        return rss
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self):
+        self.start = self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self._thread.is_alive():
+            raise RuntimeError("the RSS sampler did not stop")
+        self._sample()
+
+
+class StageWalls(logging.Handler):
+    """Collects the (stage, seconds) records of utils.logging.clock."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.walls = []
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and record.msg.startswith("<<<"):
+            self.walls.append((record.args[0], float(record.args[1])))
+
+
+def child_main(stats_path: str, argv) -> int:
+    """`python -m disco_tpu_torch <argv>` in this process; writes what it
+    measured to `stats_path` as JSON and returns the command's code."""
+    import torch
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.overlap import fused_kernel as fk
+    from disco_tpu_torch.utils.logging import log
+
+    seen = {}
+    real = pipeline.compute_relation
+
+    def compute_relation(store, table, **kw):
+        rel = real(store, table, **kw)
+        seen.update(reads=store.n_reads, windows=int(store.lengths.sum())
+                    - store.n_reads * table.k, rows=len(rel),
+                    relation=rel.stats)
+        return rel
+
+    pipeline.compute_relation = compute_relation
+    stages = StageWalls()
+    for h in log.handlers:        # the stages are collected, not printed
+        h.setLevel(max(h.level, logging.WARNING))
+    log.addHandler(stages)
+    log.setLevel(min(log.level, logging.INFO))
+    with RssPeak() as rss:
+        rc = cli.main(list(argv))
+    out = {"rc": rc, "rss_peak_bytes": rss.peak, "rss_start_bytes": rss.start,
+           "stages": stages.walls,
+           "launches": {"K1": fk.fused_compare_dual.launches,
+                        "K2": fk.fused_compare_dual_fetch.launches},
+           "device_peak_bytes": (torch.cuda.max_memory_allocated()
+                                 if torch.cuda.is_initialized() else None),
+           **seen}
+    pathlib.Path(stats_path).write_text(json.dumps(out))
+    return rc
+
+
+def _outputs(td: str, prefix: str) -> dict:
+    """The files a run wrote, by suffix."""
+    return {p.name[len(prefix):]: p.read_bytes()
+            for p in pathlib.Path(td).glob(prefix + "_*") if p.is_file()}
 
 
 def main(argv=None) -> int:
@@ -29,6 +131,7 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-len", type=int, default=4_600_000)
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--read-len", type=int, default=250)
+    ap.add_argument("--insert", type=int, default=600)
     ap.add_argument("--min-overlap", type=int, default=40)
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--backends", default="device,native")
@@ -52,26 +155,28 @@ def main(argv=None) -> int:
         filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
     with tempfile.TemporaryDirectory() as td:
         fasta = os.path.join(td, "reads.fasta")
+        t0 = time.perf_counter()
         subprocess.run(
             [sys.executable, str(ROOT / "tools" / "make_testdata.py"), fasta,
              "--genome-len", str(args.genome_len),
              "--coverage", str(args.coverage),
-             "--read-len", str(args.read_len), "--insert", "600",
+             "--read-len", str(args.read_len), "--insert", str(args.insert),
              "--seed", str(args.seed)],
             check=True, stdout=subprocess.DEVNULL)
+        data_s = time.perf_counter() - t0
 
-        walls = {}
-        outputs = {}
+        walls, runs, outputs = {}, {}, {}
         for backend in backends:
+            stats = os.path.join(td, f"{backend}.stats.json")
             t0 = time.perf_counter()
             subprocess.run(
-                [sys.executable, "-m", "disco_tpu_torch", "buildg",
-                 "-pe", fasta, "-f", os.path.join(td, backend),
-                 "-backend", backend, "-m-ovl", str(args.min_overlap)],
+                [sys.executable, "-c", CHILD, stats, "buildg", "-pe", fasta,
+                 "-f", os.path.join(td, backend), "-backend", backend,
+                 "-m-ovl", str(args.min_overlap)],
                 check=True, cwd=td, env=env)
             walls[backend] = time.perf_counter() - t0
-            outputs[backend] = pathlib.Path(
-                td, f"{backend}_0_parGraph.txt").read_bytes()
+            runs[backend] = json.loads(pathlib.Path(stats).read_text())
+            outputs[backend] = _outputs(td, backend)
 
         if args.ref:
             cfg = os.path.join(td, "b.cfg")
@@ -84,15 +189,17 @@ def main(argv=None) -> int:
                 check=True, cwd=td, stdout=subprocess.DEVNULL,
                 stderr=subprocess.DEVNULL)
             walls["reference_t1"] = time.perf_counter() - t0
-            outputs["reference_t1"] = pathlib.Path(
-                td, "REF_0_parGraph.txt").read_bytes()
+            outputs["reference_t1"] = _outputs(td, "REF")
 
     first = next(iter(outputs.values()))
     print(json.dumps({
         "bench": "buildg_e2e_wall_s", "genome_len": args.genome_len,
-        "coverage": args.coverage,
+        "coverage": args.coverage, "read_len": args.read_len,
+        "insert": args.insert, "seed": args.seed,
+        "min_overlap": args.min_overlap,
         "outputs_identical": all(v == first for v in outputs.values()),
-        "card": card, **walls}))
+        "files": sorted(first), "data_s": data_s, "card": card, **walls,
+        "runs": runs}))
     return 0
 
 

@@ -4,6 +4,7 @@ fresh set.  The native backend prints its one JSON line with
 outputs_identical; the device backend needs a CUDA card and, without
 one, exits non-zero before it times anything."""
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -11,7 +12,11 @@ import sys
 import pytest
 import torch
 
+from disco_tpu_torch.tools import bench_e2e
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+FILES = ("_0_containedReads.txt", "_0_parGraph.txt", "_0_startRead.txt",
+         "_CheckpointInfo.txt", "_ReadIDMap.txt")
 
 
 def _bench(*args):
@@ -29,6 +34,14 @@ def test_native_prints_one_json_line():
     assert line["genome_len"] == 20000 and line["coverage"] == 10
     assert line["outputs_identical"] is True
     assert line["native"] > 0 and line["card"] is None
+    # every file buildg writes is compared, and the child's numbers carried
+    assert line["files"] == sorted(FILES) and line["data_s"] > 0
+    run = line["runs"]["native"]
+    assert run["rc"] == 0 and run["rss_peak_bytes"] >= run["rss_start_bytes"]
+    assert run["rss_start_bytes"] > 0 and run["device_peak_bytes"] is None
+    assert run["launches"] == {"K1": 0, "K2": 0}
+    assert [s for s, _ in run["stages"]][:2] == ["readDataset",
+                                                 "insertDataset"]
 
 
 def test_device_without_a_card_exits_non_zero():
@@ -37,3 +50,31 @@ def test_device_without_a_card_exits_non_zero():
     res = _bench("--backends", "device,native")
     assert res.returncode != 0
     assert "CUDA card" in res.stderr and not res.stdout.strip()
+
+
+def test_child_reports_the_relation(tmp_path):
+    """A child that makes the one-pass relation (here native, `-m 100`; `-w 1000` keeps the
+    golden's parGraph chunks)
+    reports the reads, the windows and the relation's stats beside its
+    stages, peak RSS and launch counts."""
+    stats = tmp_path / "stats.json"
+    fasta = ROOT / "tests" / "golden" / "mini" / "reads.fasta"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run(
+        [sys.executable, "-c", bench_e2e.CHILD, str(stats), "buildg", "-pe",
+         str(fasta), "-f", str(tmp_path / "m"), "-backend", "native", "-m",
+         "100", "-w", "1000"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr
+    run = json.loads(stats.read_text())
+    assert run["rc"] == 0 and run["reads"] == 1600
+    assert run["windows"] == 1600 * (250 - 29) and run["relation"] == {}
+    assert run["rows"] == 57_894         # mini's relation
+    assert "overlapRelation" in dict(run["stages"])
+    assert run["rss_peak_bytes"] > 0 and run["launches"]["K2"] == 0
+    assert sorted(p.name[1:] for p in tmp_path.glob("m_*")) == sorted(FILES)
+    for suffix in FILES:
+        want = ROOT / "tests" / "golden" / "mini" / f"mini{suffix}"
+        if suffix not in ("_ReadIDMap.txt", "_0_startRead.txt"):
+            assert (tmp_path / f"m{suffix}").read_bytes() == \
+                want.read_bytes(), suffix

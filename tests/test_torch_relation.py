@@ -63,6 +63,13 @@ DEVICE_CASES = {
     "wire32_escapes": dict(chunk=1 << 14, rbits=24),
     "wire64": dict(chunk=1 << 14, wire64=True),
     "k1_route": dict(chunk=1 << 14, fetch=False),
+    # the relation streamed by chunk: chunks that do not divide the window
+    # count, and re-runs spread over several chunks on both wires and with
+    # escapes
+    "odd_chunks": dict(chunk=1000),
+    "odd_chunks_wire64": dict(chunk=1000, wire64=True),
+    "wire64_cand_overflow": dict(chunk=100, cand_factor=1, wire64=True),
+    "rbits24_cand_overflow": dict(chunk=100, cand_factor=1, rbits=24),
 }
 
 
