@@ -16,8 +16,8 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    at the main path's widths;
 3. data: an E. coli-sized read set from tools/make_testdata.py (4.6 Mb
    genome, 30x, 250 bp paired reads, 500 bp insert, seed 42), and the cut
-   set of phases 5 (xla), 9, 10 and 11 (the same make of a 1 Mb genome,
-   CUT_GENOME);
+   set of phases 5 (xla), 7, 8, 9, 10 and 11 (the same make of a 1 Mb
+   genome, CUT_GENOME);
    MinOverlap4BuildGraph from the shipped cfg (30);
 4. kernels: both dual-check kernels (and, past the row, K1's rows route)
    against their plain PyTorch versions
@@ -50,8 +50,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    4-byte one with no chunk re-run, its wall printed beside the 4-byte
    run's overlapRelation;
 7. verify paths, the main path of bench_verify (`python -m
-   disco_tpu_torch.bench_verify`): every candidate pair of the same read
-   set (bench_verify.candidate_batch, MinOverlap 30) and the BFS relabel
+   disco_tpu_torch.bench_verify`): every candidate pair of the cut set
+   (bench_verify.candidate_batch, MinOverlap 30; the 4.6 Mb set until
+   phase 14 needed the time) and the BFS relabel
    over all of them, timed on the host.  With the K3, K4, K6 and K7 launch
    counts set to 0, all seven paths (xla, pallas = K7, fused and fused_t =
    K3, fused_mxu and fused_mxu2 = K4, fused_mxu3 = K6) verify the whole
@@ -62,7 +63,7 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    after and each must be above 0, and the counts of K3's, K4's and K6's
    controls (their one-thread-a-pair kernels of before, `_direct`) must
    be 0.  Then each kernel against its plain version, timed by CUDA events
-   at P = 2^22 (the median over 5 spread slices; K3, K4 and K6 in turns
+   at P = 2^22 (the median over up to 5 spread slices; K3, K4 and K6 in turns
    with their controls, plain, control, kernel, kernel, control, as made
    and moved apart, the controls held to the plain version too; K6 also
    held), each path's pairs/s, and edge-case batches (every bit phase,
@@ -142,7 +143,7 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    the first card), launched on a free port of 127.0.0.1 through
    tools/multicard.py's RANK_LAUNCHER, which prints each rank's launch
    counts, the bytes it receives from its peer through each collective
-   (the hit grids' gathers apart) and its seconds in each, its chunks,
+   (the kept rows' gathers apart) and its seconds in each, its chunks,
    `clock` stages, wall and peak device memory after `multiproc.main`
    returns.  The golden `mini` in both modes, rank 0's
    files equal to the reference's outputs; NCCL, the default backend, must
@@ -171,11 +172,12 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    against the bound and floors of `rows_work`; `buildg -backend device`
    on `mini` under DISCO_TPU_TORCH_TRACE (the CLI's trace wrap) with files
    equal to the untraced run's and a Chrome trace that names K2's kernel;
-13. scale, the main path at the size its users run: `python -m
-   disco_tpu_torch.tools.bench_e2e` on the JAX package's verified set
-   (100 Mb genome, 25x, 250 bp pairs, 500 bp insert, seed 99: 10,000,000
-   reads, 2,210,000,000 windows at MinOverlap 30), `buildg -backend
-   device` and then `buildg -backend native`, each in a fresh process.
+13. scale, the main path at the size its users run: on the JAX package's
+   verified set (100 Mb genome, 25x, 250 bp pairs, 500 bp insert, seed 99:
+   10,000,000 reads, 2,210,000,000 windows at MinOverlap 30), made once
+   into the smoke's temporary directory, `buildg -backend device` and then
+   `buildg -backend native`, each in a fresh process through
+   disco_tpu_torch/tools/bench_e2e.py's `run_child` (its `child_main`).
    The reads must pass 2^23 and the windows 2^31; the device run must
    choose the 8-byte wire by itself and launch K2 (its child reports the
    count); every file both runs write must be byte-identical.  Prints the
@@ -184,7 +186,18 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    (sampled every 10 ms, as phase 9's), the device run's peak device
    memory and the seconds the reads took to make.  The device run peaks
    at some 21 GiB of host memory and the native one at 17 GiB, one after
-   the other (an H100's host, PERF.md section 5).
+   the other (an H100's host, PERF.md section 5);
+14. dist scale, the distributed buildG at that size: `python -m
+   disco_tpu_torch buildg -pe reads.fasta -n 4 -rma -m-ovl 30` on phase
+   13's reads in a fresh process (`run_child`), four shards on the one
+   card, with the counts of that process.  Every file must be
+   byte-identical to phase 13's native files (no second native run), the
+   reads past 2^23 and the windows past 2^31, K1's rows route launched, K2
+   never, and K1's column kernel exactly once a re-run (fallback) chunk.
+   Prints the chunks, chunk plan, fallback chunks, hit_cap, kept rows,
+   wall and `clock` stages, peak host RSS (sampled every 10 ms) and peak
+   device memory, and the relation's host seconds a chunk by stage
+   (`dist.builder.HOST_STAGES`).
 
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes over 3.35 TB/s and its 32-bit integer operations
@@ -218,7 +231,8 @@ phase 9's counts, and `dist_launches`, phase 10's; K1 with
 `multiproc_launches`, phase 11's rows-route launches over its runs and
 ranks, and `multiproc_rank_launches` by run and rank; K2 with
 `ecc_launches`, phase 11's `assemble -ecc`, and `scale_launches`, phase
-13's device run; K1 with its rows
+13's device run; K1 with `dist_scale_launches`, its rows route's launches
+in phase 14; K1 with its rows
 route's `dist_rows_*` times, bound, sector floor, live lanes and launches
 at the dist shape, and the column route and column kernels there; K1
 with phase 12's `grid_launches` and its rows route's `grid_rows_*` times,
@@ -228,6 +242,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import filecmp
 import gc
 import json
 import logging
@@ -285,10 +300,11 @@ PTXAS_KERNELS = {
 # or below their wrappers' host work back to back (K1, K2 and K7, with no
 # control, are held in their own timing)
 HELD = ("K6", "T3")
-# phase 5's xla buildG, phase 9's assemble and the builds of phases 10 and
+# phase 5's xla buildG, phases 7 and 8 (the verify paths' and fetch
+# experiments' batch), phase 9's assemble and the builds of phases 10 and
 # 11 (`buildg -n 4 [-rma]`, two ranks) run on a 1 Mb set of phase 3's make
 # (30x, 250 bp, insert 500, seed 42) instead of the 4.6 Mb set, to leave
-# phase 13 room in the smoke's time limit
+# phases 13 and 14 room in the smoke's time limit
 CUT_GENOME = 1_000_000
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
@@ -2130,27 +2146,26 @@ def dist_rows_check(t1, r1, t2, r2, geo, h):
 
 def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
     """Both engines' supersteps on the full set, four shards on the card,
-    as `buildg -n 4 [-rma]` makes them: the first chunk once, then chunks
-    1 .. n_profiled, each pulled to the host as `_relation` pulls it, under
-    `profiled`.  The first dist-mem superstep's inputs to K1's rows route
-    (shard 0's) are kept for `dist_rows_check`."""
+    as `buildg -n 4 [-rma]` makes them (`make_chunk_step`, `compact`,
+    `builder._pull`): the first chunk once, then chunks 1 .. n_profiled
+    under `profiled`.  The first dist-mem superstep's inputs to K1's rows
+    route (shard 0's) are kept for `dist_rows_check`."""
     import numpy as np
     import torch
     from disco_tpu_torch.dist import builder
-    from disco_tpu_torch.dist.mesh import gather_host, make_mesh
-    from disco_tpu_torch.dist.overlap_shard import (PAD_KEY,
-                                                    DistMemOverlapEngine,
-                                                    ShardedOverlapEngine)
+    from disco_tpu_torch.dist.mesh import make_mesh
+    from disco_tpu_torch.dist.overlap_shard import (DistMemOverlapEngine,
+                                                    ShardedOverlapEngine,
+                                                    compact)
     from disco_tpu_torch.index.table import FingerprintTable
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import device as dv
-    from disco_tpu_torch.overlap.relation import window_codes
 
     store = ReadStore.from_files([str(fasta)], [], min_ovl)
     table = FingerprintTable.build(store, min_ovl - 1)
-    qread, qj, qcode = window_codes(store, table.k)
+    q = int(store.lengths.sum()) - store.n_reads * table.k
     hit_cap, chunk, route_cap = builder.chunk_plan(
-        table, len(qread), DIST_SHARDS, None, 1 << 25)
+        table, q, DIST_SHARDS, None, 1 << 25)
     marked = np.zeros(store.n_reads + (-store.n_reads) % DIST_SHARDS,
                       np.int32)
     mesh = make_mesh(DIST_SHARDS)
@@ -2162,32 +2177,26 @@ def dist_supersteps(fasta: pathlib.Path, min_ovl: int, n_profiled=3):
             seen.append(args)
         return real(*args)
 
-    def chunks(step, first, last):
+    def chunks(windows, run, first, last):
         for c in range(first, last):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            pad = chunk - len(qread[sl])        # `_relation`'s tail padding
-            out = step(np.pad(qread[sl], (0, pad)),
-                       np.pad(qj[sl], (0, pad), constant_values=-1),
-                       np.pad(qcode[sl], (0, pad), constant_values=PAD_KEY),
-                       marked)
-            for g in out[:6]:
-                gather_host(mesh, g)
+            inputs = windows(c * chunk, min((c + 1) * chunk, q))
+            out = run(inputs, marked)
+            builder._pull(mesh, *compact(inputs[0], inputs[1], out))
 
-    n_chunks = -(-len(qread) // chunk)
+    n_chunks = -(-q // chunk)
     profiled_chunks = (min(1, n_chunks - 1), min(1 + n_profiled, n_chunks))
 
     for name, engine in (("dist-mem", DistMemOverlapEngine),
                          ("replicated", ShardedOverlapEngine)):
         eng = engine.build(store, table, mesh, hit_cap=hit_cap,
                            route_cap=route_cap, prune_marked=True)
-        step = (eng.make_step(store, q_chunk=chunk)[0]
-                if engine is DistMemOverlapEngine else eng.make_step(store))
+        step = eng.make_chunk_step(store, chunk)
         dv.fused_compare_dual_rows = capture
         try:
-            chunks(step, 0, 1)
+            chunks(*step, 0, 1)
         finally:
             dv.fused_compare_dual_rows = real
-        profiled(lambda: chunks(step, *profiled_chunks),
+        profiled(lambda: chunks(*step, *profiled_chunks),
                  tag=f"dist: {name}: supersteps {profiled_chunks[0]} to "
                      f"{profiled_chunks[1] - 1} profiled")
         del step, eng
@@ -2495,8 +2504,8 @@ def multiproc_run(tmp, tag, argv, cwd, want_dir, want_name):
             f"launches (column kernel {rec['columns']}, K2 {rec['k2']}); "
             f"received from its peer a superstep: all_to_all "
             f"{rec['all_to_all'] / chunks:.0f} B, all_gather "
-            f"{rec['all_gather'] / chunks:.0f} B, of which the hit grids "
-            f"and overflows {rec['grids'] / chunks:.0f} B; in the "
+            f"{rec['all_gather'] / chunks:.0f} B, of which the kept rows, "
+            f"counts and overflows {rec['collect'] / chunks:.0f} B; in the "
             f"collectives over the run (card synchronised around each): "
             f"all_to_all {rec['all_to_all_s']:.2f} s, all_gather "
             f"{rec['all_gather_s']:.2f} s; peak device memory "
@@ -2825,7 +2834,7 @@ def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
 # 25x, 250 bp pairs, 500 bp insert, seed 99; 10,000,000 reads
 SCALE_SET = ("--genome-len", "100000000", "--coverage", "25", "--read-len",
              "250", "--insert", "500", "--seed", "99")
-SCALE_TIMEOUT = 900     # seconds for the data and both buildG runs
+SCALE_TIMEOUT = 900     # seconds for the data, and for each buildG run
 SCALE_FILES = ("_0_containedReads.txt", "_0_parGraph.txt", "_0_startRead.txt",
                "_CheckpointInfo.txt", "_ReadIDMap.txt")
 
@@ -2837,29 +2846,36 @@ def meminfo(*names):
     return {n: int(fields[n].split()[0]) * 1024 for n in names}
 
 
-def scale_phase(min_ovl: int):
+def scale_phase(tmp: pathlib.Path, min_ovl: int):
     """`buildg -backend device` and `buildg -backend native` on SCALE_SET,
-    each in a fresh process through tools/bench_e2e.py, at the smoke's
-    MinOverlap: past 2^23 reads (the 8-byte wire, chosen by the read count)
-    and 2^31 windows.  Every file both runs write must be equal.  Returns
-    K2's launches in the device run."""
+    each in a fresh process through tools/bench_e2e.py's `run_child`, at
+    the smoke's MinOverlap: past 2^23 reads (the 8-byte wire, chosen by the
+    read count) and 2^31 windows.  Every file both runs write must be
+    equal.  Returns K2's launches in the device run and the directory that
+    keeps the reads and the native run's files (prefix `native`) for
+    phase 14."""
+    from disco_tpu_torch.tools.bench_e2e import run_child
+
     mem = meminfo("MemTotal", "MemAvailable")
     say(f"scale: host MemTotal {mem['MemTotal'] / 2**30:.1f} GiB, "
         f"MemAvailable {mem['MemAvailable'] / 2**30:.1f} GiB")
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "disco_tpu_torch.tools.bench_e2e", *SCALE_SET,
-         "--min-overlap", str(min_ovl), "--backends", "device,native"],
-        cwd=ROOT, capture_output=True, text=True, timeout=SCALE_TIMEOUT)
-    check(res.returncode == 0, f"bench_e2e at 100 Mb exited "
-                               f"{res.returncode}: {res.stderr[-3000:]}")
-    line = json.loads(res.stdout.strip().splitlines()[-1])
-    dev, nat = line["runs"]["device"], line["runs"]["native"]
+    scale = tmp / "scale"
+    scale.mkdir()
+    fasta = scale / "reads.fasta"
+    subprocess.run([sys.executable, str(ROOT / "tools" / "make_testdata.py"),
+                    str(fasta), *SCALE_SET], check=True,
+                   stdout=subprocess.DEVNULL, timeout=SCALE_TIMEOUT)
+    data_s = time.perf_counter() - t0
+    walls, runs = {}, {}
+    for name in ("device", "native"):
+        walls[name], runs[name] = run_child(
+            str(scale), str(scale / name), ["-pe", str(fasta), "-backend",
+                                            name, "-m-ovl", str(min_ovl)],
+            timeout=SCALE_TIMEOUT)
+    dev, nat = runs["device"], runs["native"]
     rel = dev["relation"]
-    check(line["outputs_identical"] is True,
-          "the device and native buildG files differ at 100 Mb")
-    check(tuple(line["files"]) == SCALE_FILES,
-          f"buildG wrote {line['files']}")
+    same_files(scale, "device", "native", "at 100 Mb")
     check(dev["reads"] > 1 << 23, f"{dev['reads']} reads: not past 2^23")
     check(dev["windows"] > 1 << 31, f"{dev['windows']} windows: not past "
                                     "2^31")
@@ -2867,25 +2883,121 @@ def scale_phase(min_ovl: int):
                                   f"{dev['reads']} reads")
     k2 = dev["launches"]["K2"]
     check(k2 > 0, "the device buildG at 100 Mb never launched K2")
-    check(nat["launches"] == {"K1": 0, "K2": 0},
+    check(set(nat["launches"].values()) == {0},
           f"the native buildG launched {nat['launches']}")
     say(f"scale: {dev['reads']} reads (2^23 = {1 << 23}), {dev['windows']} "
         f"windows (2^31 = {1 << 31}); the {rel['wire_bytes']}-byte wire, "
         f"unforced; {rel['chunks']} chunks, {rel['fallback_chunks']} "
         f"fallback; {dev['rows']} kept rows; K2 {k2} launches, K1 "
-        f"{dev['launches']['K1']}; the reads made in {line['data_s']:.2f} s")
+        f"{dev['launches']['K1']}; the reads made in {data_s:.2f} s")
     say(f"scale: every file buildG writes is byte-identical between -backend "
-        f"device and -backend native: {', '.join(line['files'])}")
+        f"device and -backend native: {', '.join(SCALE_FILES)}")
     for name, run in (("device", dev), ("native", nat)):
-        say(f"scale: buildg -backend {name} {line[name]:.2f} s in a fresh "
-            f"process, host peak RSS {run['rss_peak_bytes'] / 2**20:.0f} MiB "
-            f"({run['rss_start_bytes'] / 2**20:.0f} MiB at the command's "
-            "start, sampled every 10 ms): " + ", ".join(
-                f"{st} {t:.2f} s" for st, t in run["stages"]))
+        say(f"scale: buildg -backend {name} {walls[name]:.2f} s in a fresh "
+            f"process, {run_line(run)}")
+    for f in scale.glob("device_*"):          # the disk phase 14 needs
+        f.unlink()
     say(f"scale: the device run's peak device memory "
         f"{dev['device_peak_bytes'] / 2**20:.1f} MiB; phase "
         f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
-    return k2
+    return k2, scale
+
+
+def same_files(d: pathlib.Path, got: str, want: str, where: str):
+    """Fail unless the runs `got` and `want` in `d` wrote exactly
+    SCALE_FILES, byte for byte the same."""
+    for tag in (got, want):
+        files = tuple(sorted(p.name[len(tag):] for p in d.glob(tag + "_*")))
+        check(files == SCALE_FILES, f"{tag} wrote {files} {where}")
+    for suffix in SCALE_FILES:
+        check(filecmp.cmp(d / (got + suffix), d / (want + suffix),
+                          shallow=False),
+              f"{got} and {want} {suffix} differ {where}")
+
+
+def run_line(run) -> str:
+    """A child's peak host RSS and `clock` stages, as phase 13 prints
+    them."""
+    return (f"host peak RSS {run['rss_peak_bytes'] / 2**20:.0f} MiB "
+            f"({run['rss_start_bytes'] / 2**20:.0f} MiB at the command's "
+            "start, sampled every 10 ms): " + ", ".join(
+                f"{st} {t:.2f} s" for st, t in run["stages"]))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the distributed buildG at the size its users run
+# ---------------------------------------------------------------------------
+def dist_scale_phase(scale: pathlib.Path, min_ovl: int):
+    """`buildg -n 4 -rma` on phase 13's reads in a fresh process
+    (`run_child`), four shards on the one card: every file equal to phase
+    13's native files; the rows route launched, K2 not, K1's column kernel
+    once a re-run chunk.  Returns the rows route's launches."""
+    from disco_tpu_torch.tools.bench_e2e import run_child
+
+    t0 = time.perf_counter()
+    wall, run = run_child(str(scale), str(scale / "dist"), [
+        "-pe", str(scale / "reads.fasta"), "-n", str(DIST_SHARDS), "-rma",
+        "-m-ovl", str(min_ovl)], timeout=SCALE_TIMEOUT)
+    rel, prof, n = run["relation"], run["profile"], run["launches"]
+    same_files(scale, "dist", "native", "at 100 Mb")
+    check(run["reads"] > 1 << 23, f"{run['reads']} reads: not past 2^23")
+    check(run["windows"] > 1 << 31,
+          f"{run['windows']} windows: not past 2^31")
+    check(n["K1_rows"] > 0, "buildg -n 4 -rma at 100 Mb never launched K1's "
+                            "rows route")
+    check(n["K2"] == 0, f"buildg -n 4 -rma launched K2 {n['K2']} times")
+    check(n["K1"] == rel["fallback_chunks"],
+          f"K1's column kernel launched {n['K1']} times for "
+          f"{rel['fallback_chunks']} re-run chunks")
+    say(f"dist scale: buildg -n {DIST_SHARDS} -rma on {run['reads']} reads, "
+        f"{run['windows']} windows: every file byte-identical to phase 13's "
+        f"native files ({', '.join(SCALE_FILES)}); {rel['chunks']} chunks "
+        f"of {prof['chunk']} windows, {rel['fallback_chunks']} fallback, "
+        f"hit_cap {rel['hit_cap']}, route_cap {prof['route_cap']}; "
+        f"{run['rows']} kept rows; launches: K1's rows route {n['K1_rows']}, "
+        f"K1's column kernel {n['K1']}, K2 {n['K2']}")
+    say(f"dist scale: {wall:.2f} s in a fresh process, {run_line(run)}")
+    say("dist scale: the relation's host seconds a chunk by stage (total): "
+        + ", ".join(f"{st} {t / rel['chunks'] * 1e3:.2f} ms ({t:.2f} s)"
+                    for st, t in prof["host_s"].items()))
+    win_s, codes_s = host_codes_chunk(scale / "reads.fasta", prof["chunk"],
+                                      min_ovl - 1)
+    say(f"dist scale: what the card does instead of the host: one chunk's "
+        f"windows (`chunk_windows`) {win_s:.3f} s and codes "
+        f"(`window_codes_at`) {codes_s:.3f} s on this host, "
+        f"{(win_s + codes_s) / prof['chunk'] * 1e9:.1f} ns a window, "
+        f"{(win_s + codes_s) * rel['chunks']:.1f} s over the "
+        f"{rel['chunks']} chunks")
+    say(f"dist scale: peak device memory "
+        f"{run['device_peak_bytes'] / 2**20:.1f} MiB; phase "
+        f"{time.perf_counter() - t0:.2f} s; card {card_line()}")
+    return n["K1_rows"]
+
+
+def host_codes_chunk(fasta: pathlib.Path, chunk: int, k: int):
+    """The host's seconds for one chunk's windows and their codes, the
+    work `shard_windows` does on the card: `chunk_windows` and
+    `window_codes_at` over the set's first reads, as many as one chunk's
+    windows span."""
+    from disco_tpu_torch.io.readstore import ReadStore
+    from disco_tpu_torch.overlap.device import chunk_windows, window_offsets
+    from disco_tpu_torch.overlap.relation import window_codes_at
+
+    seqs, windows = [], 0
+    with open(fasta) as f:
+        for line in f:
+            if not line.startswith(">"):
+                seqs.append(line.strip())
+                windows += len(seqs[-1]) - k
+                if windows >= chunk:
+                    break
+    store = ReadStore.from_sequences(seqs)
+    woff = window_offsets(store.lengths, k)
+    t0 = time.perf_counter()
+    read, j = chunk_windows(woff, 0, chunk)
+    t1 = time.perf_counter()
+    window_codes_at(store, read, j, k)
+    return t1 - t0, time.perf_counter() - t1
 
 
 # ---------------------------------------------------------------------------
@@ -3110,7 +3222,7 @@ def main(argv=None) -> int:
         # ---- 7. the verify paths of bench_verify ------------------------
         t0 = time.perf_counter()
         v_med, v_errs, v_launches, v_bounds, v_floors, reuse = \
-            verify_paths_phase(fasta, min_ovl)
+            verify_paths_phase(cut, min_ovl)
         say(f"verify: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 8. the fetch experiments -----------------------------------
@@ -3147,8 +3259,11 @@ def main(argv=None) -> int:
 
         # ---- 13. the main path at the size its users run -------------------
         gc.collect()
-        torch.cuda.empty_cache()     # the child's room on the card
-        s_k2 = scale_phase(min_ovl)
+        torch.cuda.empty_cache()     # the children's room on the card
+        s_k2, scale = scale_phase(tmp, min_ovl)
+
+        # ---- 14. the distributed buildG at the size its users run ----------
+        ds_k1 = dist_scale_phase(scale, min_ovl)
 
     def entry(k, name, source, replaces, n, errs, times, bd, floors=None):
         e = {"name": name, "route": "cuda", "source": source,
@@ -3191,7 +3306,8 @@ def main(argv=None) -> int:
              assemble_launches=a_launches["K1"],
              dist_launches=d_launches["K1"],
              multiproc_launches=sum(map(sum, mp_launches.values())),
-             multiproc_rank_launches=mp_launches, **d_k1, **g_k1),
+             multiproc_rank_launches=mp_launches, **d_k1, **g_k1,
+             dist_scale_launches=ds_k1),
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),
              assemble_launches=a_launches["K2"],

@@ -9,16 +9,28 @@ order as the single-device path, so the sequential replay writes files
 byte-identical to a single-process reference run, whatever the shard
 count.
 
+The relation streams (as the single-device one does,
+overlap/relation.py::_device_relation): each chunk's windows, codes and
+owners are made on the shards' devices from the reads' int64 window
+offsets (`ShardedOverlapEngine.make_chunk_step`), each shard lists its kept
+lanes on its device (`overlap_shard.compact`) and only those come to the
+host, 16 B a row, and each chunk's rows are put in relation order as they
+arrive (`relation.relation_order`).  No host array holds an entry a window
+of the whole set, and there is no global sort: what grows on the host is
+the kept rows.
+
 The mesh may span processes (dist/multiproc.py, one process per rank):
-every rank runs this same loop over the same host arrays, each step
-computes its local shards' slice, and `collect` gathers the hit grids and
-the overflow counts of every shard to every rank (`mesh.gather_host`), so
-every rank compacts the same rows and takes the same decision to re-run a
-chunk: ranks whose control flow diverged would wait on different
-collectives.  disco_tpu's multiproc raises on an overflow instead; here
-every rank re-runs the chunk exactly (`_chunk_fallback`) and gets the same
-rows."""
+every rank runs this same loop, each step computes its local shards'
+slice, and `_pull` gathers every shard's row count and overflow, then
+every shard's kept rows padded to the largest count, to every rank
+(`mesh.gather_host`), so every rank holds the same rows and takes the same
+decision to re-run a chunk: ranks whose control flow diverged would wait
+on different collectives.  disco_tpu's multiproc raises on an overflow
+instead; here every rank re-runs the chunk exactly (`_chunk_fallback`) and
+gets the same rows."""
 import os
+import time
+from contextlib import contextmanager
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -27,12 +39,21 @@ from ..buildg import replay
 from ..buildg.pipeline import load_contained_reads, read_checkpoint_info
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
+from ..overlap.device import chunk_windows, window_offsets
 from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
-                                window_codes)
+                                relation_order, window_codes_at)
 from ..overlap.verify import make_packed_all
 from ..utils.logging import clock
 from .mesh import Mesh, gather_host, make_mesh
-from .overlap_shard import PAD_KEY, DistMemOverlapEngine, ShardedOverlapEngine
+from .overlap_shard import DistMemOverlapEngine, ShardedOverlapEngine, compact
+
+# the host's stages of the chunk loop, whose seconds `_relation` adds up:
+# the marked mask, the windows' inputs staged for the devices, the step and
+# compaction enqueued, the count read and rows pulled (the wait for the
+# devices included), the rows decoded and ordered, the containment replay,
+# and the exact re-runs
+HOST_STAGES = ("marked", "windows", "step", "pull", "order", "replay",
+               "fallback")
 
 
 def _default_route_cap(chunk: int, n_dev: int) -> int:
@@ -48,18 +69,18 @@ def _default_route_cap(chunk: int, n_dev: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def _chunk_fallback(store, table, qread, qj, qcode, s, e, *, device,
+def _chunk_fallback(store, table, read, j, codes, *, device,
                     packed_all=None):
     """Exact recompute of one overflowed superstep chunk (hit, route or
-    fetch cap exceeded) by `relation._xla_rows`: every candidate of the
-    chunk's windows expanded on the host and checked through K1 on
-    `device`.  Emits the chunk's kept rows in the (window, table-slot)
-    order of the grid compaction, so the containment replay and the
-    relation sort see identical rows.  Skipping the marked prune here is
-    safe: pruned rows are exactly rows the replays skip.  The reference has
-    no such path (an overflowing rank aborts)."""
-    return _xla_rows(store, table, qread[s:e], qj[s:e], qcode[s:e],
-                     device=device, packed_all=packed_all)
+    fetch cap exceeded) by `relation._xla_rows` over the chunk's own
+    windows (read, j) and their codes: every candidate expanded on the
+    host and checked through K1's column kernel on `device`.  Emits the
+    chunk's kept rows in the (window, table-slot) order of the grid
+    compaction.  Skipping the marked prune here is safe: pruned rows are
+    exactly rows the replays skip.  The reference has no such path (an
+    overflowing rank aborts)."""
+    return _xla_rows(store, table, read, j, codes, device=device,
+                     packed_all=packed_all)
 
 
 def chunk_plan(table: FingerprintTable, q: int, n_dev: int,
@@ -82,97 +103,135 @@ def chunk_plan(table: FingerprintTable, q: int, n_dev: int,
     return hit_cap, chunk, route_cap
 
 
+def _pull(mesh: Mesh, rows, metas):
+    """The kept rows of a compacted step (`overlap_shard.compact`) on the
+    host, (R, 4) int32 in shard, window, slot order, or None when a shard
+    overflowed a cap.  One count read for every shard (across processes
+    one `all_gather`), then each shard's rows padded to the largest count,
+    so that every rank holds the same rows."""
+    meta = gather_host(mesh, metas).reshape(mesh.size, 2)
+    if meta[:, 1].sum() != 0:
+        return None
+    top = int(meta[:, 0].max())
+    if top == 0:
+        return np.zeros((0, 4), np.int32)
+    got = gather_host(mesh, [r[:top] for r in rows]).reshape(mesh.size, top,
+                                                             4)
+    return np.concatenate([got[d, :c] for d, c in enumerate(meta[:, 0])])
+
+
 def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
               route_cap, budget, dist_mem, prune,
-              superread_init=None, stats=None, hit_cap=None):
+              superread_init=None, stats=None, hit_cap=None, profile=None):
     """The chunked sharded relation; with `prune`, in-loop containment
-    marking.  Returns (relation, superread, cont_lines)."""
+    marking.  Returns (relation, superread, cont_lines).  `profile`, a
+    dict, receives the chunk plan (hit_cap, chunk, route_cap) and the
+    host's seconds by stage (`host_s`, HOST_STAGES)."""
     n_dev = mesh.size
-    qread, qj, qcode = window_codes(store, table.k)
-    q = len(qread)
+    k = table.k
+    woff = window_offsets(store.lengths, k)
+    q = int(woff[-1])
     hit_cap, chunk, route_cap = chunk_plan(table, q, n_dev, route_cap,
                                            budget, hit_cap)
-    if dist_mem:
-        eng = DistMemOverlapEngine.build(store, table, mesh, hit_cap=hit_cap,
-                                         route_cap=route_cap,
-                                         prune_marked=prune)
-        step, _ = eng.make_step(store, q_chunk=chunk)
-    else:
-        eng = ShardedOverlapEngine.build(store, table, mesh, hit_cap=hit_cap,
-                                         route_cap=route_cap,
-                                         prune_marked=prune)
-        step = eng.make_step(store)
+    engine = DistMemOverlapEngine if dist_mem else ShardedOverlapEngine
+    eng = engine.build(store, table, mesh, hit_cap=hit_cap,
+                       route_cap=route_cap, prune_marked=prune)
+    windows, run = eng.make_chunk_step(store, chunk)
 
     n = store.n_reads
     superread = (superread_init.copy() if superread_init is not None
                  else np.zeros(n + 1, np.int64))
     cont_lines = []
-    pad_n = (-n) % n_dev
-
-    def marked_now():
-        return np.pad((superread[1:n + 1] != 0).astype(np.int32),
-                      (0, pad_n))
-
+    marked = np.zeros(n + (-n) % n_dev, np.int32)
+    fidx = store.file_index
     parts = {name: [] for name in _COLUMNS}
     fallback = {}          # the fallback's packed rows, made at first use
     stats = stats if stats is not None else {}
     stats.setdefault("fallback_chunks", 0)
     stats.setdefault("chunks", 0)
+    profile = profile if profile is not None else {}
+    profile.update(hit_cap=hit_cap, chunk=chunk, route_cap=route_cap)
+    secs = profile.setdefault("host_s", dict.fromkeys(HOST_STAGES, 0.0))
 
-    def collect(s, e, out):
-        if gather_host(mesh, out[5]).sum() != 0:
-            # a cap was exceeded in this chunk: recompute it exactly
-            stats["fallback_chunks"] += 1
-            if "packed_all" not in fallback:
-                fallback["packed_all"] = make_packed_all(
-                    store.packed, store.packed_rc, mesh.devices[0])
-            rows = _chunk_fallback(store, table, qread, qj, qcode, s, e,
-                                   device=mesh.devices[0],
-                                   packed_all=fallback["packed_all"])
-        else:
-            m = e - s
-            r2, orient, typ, edge_ok, cont_ok = (gather_host(mesh, g)[:m]
-                                                 for g in out[:5])
-            qi, hi = np.nonzero(edge_ok | cont_ok)
-            rows = {"r1": qread[s:e][qi], "j": qj[s:e][qi],
-                    "r2": r2[qi, hi], "orient": orient[qi, hi],
-                    "typ": typ[qi, hi], "edge_ok": edge_ok[qi, hi],
-                    "cont_ok": cont_ok[qi, hi]}
-        for name, dtype in _COLUMNS.items():
-            parts[name].append(rows[name].astype(dtype, copy=False))
+    @contextmanager
+    def stage(name):
+        t0 = time.perf_counter()
+        yield
+        secs[name] += time.perf_counter() - t0
+
+    def emit(r1, j, r2, orient, typ, edge_ok, cont_ok):
+        """Append one chunk's rows in relation order; with `prune`, advance
+        the order-exact containment replay over its cont rows."""
+        with stage("order"):
+            order = relation_order(r1.astype(np.int64) * store.max_len + j,
+                                   fidx[r2], typ)
+            for name, col in (("r1", r1), ("j", j), ("r2", r2),
+                              ("orient", orient), ("typ", typ),
+                              ("edge_ok", edge_ok), ("cont_ok", cont_ok)):
+                parts[name].append(col[order].astype(_COLUMNS[name],
+                                                     copy=False))
         if prune:
-            # advance the order-exact containment replay over this chunk's
-            # cont rows (rows arrive in relation order)
-            cc = parts["cont_ok"][-1]
-            replay.containment_step(
-                superread, cont_lines, store, table.k, parts["r1"][-1][cc],
-                parts["j"][-1][cc], parts["r2"][-1][cc],
-                parts["orient"][-1][cc])
+            with stage("replay"):
+                cc = parts["cont_ok"][-1]
+                replay.containment_step(
+                    superread, cont_lines, store, k, parts["r1"][-1][cc],
+                    parts["j"][-1][cc], parts["r2"][-1][cc],
+                    parts["orient"][-1][cc])
 
-    # 1-deep pipeline: chunk i+1 is enqueued on the devices before chunk
-    # i's results are pulled, so the host compaction overlaps the devices
+    def take(s, e, got):
+        if got is None:
+            # a cap was exceeded in this chunk: recompute it exactly, codes
+            # made for its windows alone
+            with stage("fallback"):
+                stats["fallback_chunks"] += 1
+                if "packed_all" not in fallback:
+                    fallback["packed_all"] = make_packed_all(
+                        store.packed, store.packed_rc, mesh.devices[0])
+                read, j = chunk_windows(woff, s, e)
+                rows = _chunk_fallback(
+                    store, table, read, j, window_codes_at(store, read, j, k),
+                    device=mesh.devices[0],
+                    packed_all=fallback["packed_all"])
+            emit(*(rows[name] for name in ("r1", "j", "r2", "orient", "typ",
+                                           "edge_ok", "cont_ok")))
+        else:
+            r1, j, r2, code = got.T
+            emit(r1, j, r2, code & 3, (code >> 2) & 1, (code & 8) != 0,
+                 (code & 16) != 0)
+
+    # 1-deep pipeline: chunk i's rows are pulled (the wait for the devices)
+    # before chunk i+1 is enqueued, and taken on the host while the devices
+    # run chunk i+1; the marks chunk i+1 sees lag by that one chunk, which
+    # is safe (a late mark only means less pruning)
     pending = None
     for s in range(0, q, chunk):
         e = min(s + chunk, q)
-        pad = chunk - (e - s)
-        out = step(np.pad(qread[s:e], (0, pad)),
-                   np.pad(qj[s:e], (0, pad), constant_values=-1),
-                   np.pad(qcode[s:e], (0, pad), constant_values=PAD_KEY),
-                   marked_now())
+        with stage("marked"):
+            np.not_equal(superread[1:n + 1], 0, out=marked[:n],
+                         casting="unsafe")
+        if pending is not None:
+            with stage("pull"):
+                got = _pull(mesh, *pending[2])
+        with stage("windows"):
+            inputs = windows(s, e)
+        with stage("step"):
+            out = run(inputs, marked)
+            compacted = compact(inputs[0], inputs[1], out)
+            del out
         stats["chunks"] += 1
         if pending is not None:
-            collect(*pending)
-        pending = (s, e, out)
+            take(*pending[:2], got)
+        pending = (s, e, compacted)
     if pending is not None:
-        collect(*pending)
+        with stage("pull"):
+            got = _pull(mesh, *pending[2])
+        take(*pending[:2], got)
 
-    cols = {name: (np.concatenate(parts[name]).astype(dtype, copy=False)
-                   if parts[name] else np.zeros(0, dtype))
+    # one column at a time, each column's parts freed once it is joined
+    rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
+                   else np.zeros(0, dtype))
             for name, dtype in _COLUMNS.items()}
-    order = np.lexsort((cols["typ"], store.file_index[cols["r2"]],
-                        cols["j"], cols["r1"]))
-    rel = OverlapRelation(**{name: c[order] for name, c in cols.items()},
-                          k=table.k, stats=dict(stats))
+    rel = OverlapRelation(**rows, k=k, stats=dict(stats))
     return rel, superread, cont_lines
 
 
@@ -181,7 +240,8 @@ def sharded_relation(store: ReadStore, table: FingerprintTable, mesh: Mesh,
                      budget: int = 1 << 25,
                      dist_mem: bool = False,
                      stats: Optional[dict] = None,
-                     hit_cap: Optional[int] = None) -> OverlapRelation:
+                     hit_cap: Optional[int] = None,
+                     profile: Optional[dict] = None) -> OverlapRelation:
     """The verified overlap relation on the mesh.
 
     Queries run in chunks of a fixed size a superstep, so device memory
@@ -192,10 +252,11 @@ def sharded_relation(store: ReadStore, table: FingerprintTable, mesh: Mesh,
     payload over the shards (DistMemOverlapEngine, the buildG-MPIRMA
     equivalent); False replicates it (buildG-MPI).  `stats` counts chunks
     and fallback_chunks; `hit_cap` defaults to the largest key bucket
-    (`chunk_plan`)."""
+    (`chunk_plan`); `profile` receives the chunk plan and the host's
+    seconds by stage (`_relation`)."""
     rel, _, _ = _relation(store, table, mesh, route_cap=route_cap,
                           budget=budget, dist_mem=dist_mem, prune=False,
-                          stats=stats, hit_cap=hit_cap)
+                          stats=stats, hit_cap=hit_cap, profile=profile)
     return rel
 
 
@@ -205,7 +266,9 @@ def sharded_relation_pruned(store: ReadStore, table: FingerprintTable,
                             budget: int = 1 << 25,
                             dist_mem: bool = False,
                             superread_init: Optional[np.ndarray] = None,
-                            stats: Optional[dict] = None):
+                            stats: Optional[dict] = None,
+                            hit_cap: Optional[int] = None,
+                            profile: Optional[dict] = None):
     """The chunked sharded relation with in-loop containment marking: after
     each superstep the host advances the order-exact containment replay and
     feeds the contained-read mask into later supersteps, whose gathered
@@ -219,10 +282,12 @@ def sharded_relation_pruned(store: ReadStore, table: FingerprintTable,
     is safe: a late mark only means less pruning, and pruned rows are rows
     the replays skip.  Returns (relation, superread, cont_lines); the
     relation omits pruned rows, so it is not row-comparable to the
-    unpruned one, but every file derived from it is byte-identical."""
+    unpruned one, but every file derived from it is byte-identical.
+    `stats`, `hit_cap` and `profile` as for `sharded_relation`."""
     return _relation(store, table, mesh, route_cap=route_cap,
                      budget=budget, dist_mem=dist_mem, prune=True,
-                     superread_init=superread_init, stats=stats)
+                     superread_init=superread_init, stats=stats,
+                     hit_cap=hit_cap, profile=profile)
 
 
 def run_buildg_sharded(paired_files: Sequence[str],

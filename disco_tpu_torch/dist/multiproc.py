@@ -11,8 +11,9 @@ runDisco-MPI.sh:214 `mpirun -np N buildG-MPI ...`).
   table);
 - each superstep, each rank computes its shards' slice of the query axis
   (and, with -rma, holds only its shards' slice of the packed payload);
-  the exchanges run over the process group, and the hit grids come back
-  to every rank (`dist.builder`'s collect, one `all_gather` a grid);
+  the exchanges run over the process group, and every shard's kept rows
+  come back to every rank (`dist.builder._pull`: the counts, then the
+  rows, one `all_gather` each);
 - every rank runs the same deterministic replay; rank 0 writes the output
   files; a barrier ends the run.
 
@@ -56,7 +57,7 @@ def sharded_relation_multiproc(store, table, mesh: Mesh,
                                dist_mem: bool = False):
     """disco_tpu's multi-process relation, with its arguments: the
     one-process `sharded_relation` over a mesh that spans the processes
-    (`process_mesh`), whose collect gathers every shard's hit grids to
+    (`process_mesh`), whose collect gathers every shard's kept rows to
     every rank.  Call it on every rank; every rank returns the same
     relation (its `stats` count chunks and fallback chunks)."""
     return sharded_relation(store, table, mesh, route_cap=route_cap,

@@ -31,8 +31,18 @@ host synchronisation; on the CPU its plain version).
 
 Keys are uint64 on the host and int64 with the sign bit flipped on the
 devices (`overlap.device.flip_keys`): torch has no uint64 `%` or
-`searchsorted`.  So the table is sharded on the host in numpy, and each
-query's owner is the host's uint64 code mod n."""
+`searchsorted`.  So the table is sharded on the host in numpy; a query's
+owner is its code mod n in unsigned arithmetic, the host's uint64 `%` for
+host codes (`key_owner`) and, for codes made on a device, the mod taken
+from the code's two 32-bit halves (`code_owner`).
+
+Two front ends feed the superstep: `make_step` takes a chunk's host arrays
+(qread, qj, qcode, marked), as disco_tpu's step does; `make_chunk_step`
+makes each shard's windows, codes and owners on its device from the
+reads' window offsets and the rows of the reads its slice touches
+(`shard_windows`), so that no host array holds an entry a window.
+`compact` then lists each shard's kept lanes on its device, and only
+those leave it."""
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,12 +50,14 @@ import torch
 
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
-from ..overlap.device import (_SIGN64, candidate_checks,
-                              candidate_checks_rows, flip_keys)
+from ..overlap.device import (_M32, _SIGN64, _Scatter, _window_codes,
+                              candidate_checks, candidate_checks_rows,
+                              flip_keys, window_offsets)
 from ..overlap.verify import as_words, make_packed_all
 from .mesh import Mesh, all_gather, all_to_all, gather_host
 
 PAD_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+_PAD_FLIPPED = int(flip_keys(np.array([PAD_KEY]))[0])   # the int64 maximum
 
 
 def key_owner(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -53,6 +65,73 @@ def key_owner(keys: np.ndarray, n_shards: int) -> np.ndarray:
     unsigned arithmetic, as int32."""
     return (np.asarray(keys, np.uint64) % np.uint64(n_shards)).astype(
         np.int32)
+
+
+def code_owner(flipped: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """`key_owner` of sign-flipped int64 codes on their device: the uint64
+    code u = hi * 2^32 + lo mod n as ((hi mod n) (2^32 mod n) + lo mod n)
+    mod n, every term non-negative and under n^2 (int64 `%` of the flipped
+    key would take the signed value's residue)."""
+    u = flipped ^ _SIGN64
+    hi, lo = (u >> 32) & _M32, u & _M32
+    return ((hi % n_shards) * ((1 << 32) % n_shards) + lo % n_shards) \
+        .remainder(n_shards).to(torch.int32)
+
+
+def shard_windows(woff: np.ndarray, packed, a: int, b: int, lanes: int,
+                  k: int, n_shards: int, device):
+    """One shard's step inputs for the global windows [a, b), padded to
+    `lanes`, made on `device`: (qread, qj) int32, the sign-flipped codes
+    int64 and the owners int32 (`code_owner`); a pad lane has read 0, j -1
+    and the pad key, as the host front end pads.  `woff` holds the reads'
+    window offsets (`overlap.device.window_offsets`, int64, past 2^31); the
+    host hands the device the offsets and packed rows of the reads
+    [a, b) touches alone, O(reads) and not O(windows).  `packed` is the
+    store's forward rows (any array that slices by read)."""
+    w = torch.arange(a, a + lanes, dtype=torch.int64, device=device)
+    real = w < b
+    if b > a:
+        r0, r1 = (int(r) for r in np.searchsorted(woff, [a, b - 1],
+                                                  side="right") - 1)
+        offs = torch.from_numpy(np.ascontiguousarray(
+            woff[r0:r1 + 2], np.int64)).to(device)
+        rows = as_words(packed[r0:r1 + 1], device)
+        w = w.clamp_max(b - 1)
+        li = torch.searchsorted(offs, w, right=True) - 1
+        qj = w - offs[li]
+        code = _window_codes(rows, li, qj, k)
+        qread = li + r0
+    else:                      # a slice past the set's last window
+        qread = qj = code = torch.zeros_like(w)
+    qread = torch.where(real, qread, 0).to(torch.int32)
+    qj = torch.where(real, qj, -1).to(torch.int32)
+    code = torch.where(real, code, _PAD_FLIPPED)
+    return qread, qj, code, code_owner(code, n_shards)
+
+
+def compact(qread, qj, out):
+    """Each local shard's kept lanes of a step (`edge_ok | cont_ok`) in
+    lane order, window then slot, listed on its device: rows (lanes, 4)
+    int32 [r1, j, r2, orient | typ << 2 | edge_ok << 3 | cont_ok << 4],
+    the first `count` of them live, and meta (2,) int64 [count, the
+    shard's overflow].  `qread`, `qj` are the step's per-shard inputs, `out`
+    its outputs.  No count is read back: the caller reads every shard's
+    meta at once, then only the live rows leave the device."""
+    rows, metas = [], []
+    for d, (r2, orient, typ, edge_ok, cont_ok) in enumerate(zip(*out[:5])):
+        h = r2.shape[1]
+        keep = (edge_ok | cont_ok).reshape(-1)
+        code = (orient | (typ << 2) | (edge_ok.to(torch.int32) << 3)
+                | (cont_ok.to(torch.int32) << 4)).reshape(-1)
+        scat = _Scatter(keep, keep.shape[0])
+        rows.append(torch.stack([
+            scat(qread[d][:, None].expand(-1, h).reshape(-1), torch.int32),
+            scat(qj[d][:, None].expand(-1, h).reshape(-1), torch.int32),
+            scat(r2.reshape(-1), torch.int32),
+            scat(code, torch.int32)], 1))
+        metas.append(torch.stack([keep.sum(), out[5][d].reshape(()).to(
+            torch.int64)]))
+    return rows, metas
 
 
 def _bin_by_owner(owner, n_bins, cap):
@@ -253,24 +332,57 @@ class ShardedOverlapEngine:
                          unions[d][None, :]))
         return tuple(list(x) for x in zip(*outs))
 
-    def make_step(self, store: ReadStore):
-        """Returns step(qread, qj, qcode, marked) over host arrays (qcode
-        uint64; marked padded to a multiple of the shard count): the
-        per-shard outputs (r2, orient, typ, edge_ok, cont_ok, overflow,
-        marked union), each a list over the shards (`gather` makes them
-        disco_tpu's global arrays).  The packed rows and lengths are held
-        once per distinct device, the table shards by their shards."""
+    def _runner(self, store: ReadStore, q_chunk: int):
+        """run(qread, qj, qcode, qowner, marked), each a list over the local
+        shards, -> the step's per-shard outputs.  The packed rows and
+        lengths are held once per distinct device, the table shards by
+        their shards."""
         shards = self._table_shards()
         packed_all = self.mesh.replicate(
             make_packed_all(store.packed, store.packed_rc))
         lengths = self.mesh.replicate(
             np.ascontiguousarray(store.lengths, np.int32))
 
+        def run(*inputs):
+            return self._superstep(packed_all, lengths, *inputs, shards)
+        return run
+
+    def make_step(self, store: ReadStore):
+        """Returns step(qread, qj, qcode, marked) over host arrays (qcode
+        uint64; marked padded to a multiple of the shard count): the
+        per-shard outputs (r2, orient, typ, edge_ok, cont_ok, overflow,
+        marked union), each a list over the shards (`gather` makes them
+        disco_tpu's global arrays)."""
+        run = self._runner(store, None)
+
         def step(qread, qj, qcode, marked):
-            return self._superstep(packed_all, lengths,
-                                   *self._inputs(qread, qj, qcode, marked),
-                                   shards)
+            return run(*self._inputs(qread, qj, qcode, marked))
         return step
+
+    def make_chunk_step(self, store: ReadStore, q_chunk: int):
+        """The step over global window ranges of the store: returns
+        (windows, run).  windows(s, e) makes each local shard's inputs for
+        the windows [s, e) of chunks of `q_chunk` (shard g takes
+        [s + g * q_chunk / n, ...)) on its device (`shard_windows`): what
+        `make_step` receives from `window_codes` slices.  run(inputs,
+        marked) takes them and the host's marked array and gives
+        `make_step`'s outputs."""
+        mesh = self.mesh
+        lanes = q_chunk // mesh.size
+        woff = window_offsets(store.lengths, self.k)
+        run = self._runner(store, q_chunk)
+
+        def windows(s, e):
+            per_shard = [shard_windows(woff, store.packed, s + g * lanes,
+                                       min(s + (g + 1) * lanes, e), lanes,
+                                       self.k, mesh.size, d)
+                         for g, d in zip(mesh.shards, mesh.devices)]
+            return tuple(list(x) for x in zip(*per_shard))
+
+        def run_chunk(inputs, marked):
+            return run(*inputs, mesh.split(np.ascontiguousarray(marked,
+                                                                np.int32)))
+        return windows, run_chunk
 
 
 def fetch_cap_for(q_chunk: int, n_shards: int, hit_cap: int) -> int:
@@ -303,20 +415,27 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
     O(chunk * hit_cap) superstep state."""
 
     @staticmethod
-    def shard_payload(store: ReadStore, n_shards: int):
+    def payload_block(store: ReadStore, shard: int, n_shards: int):
+        """Shard `shard`'s payload, (2 * block, Wp) uint32: the forward rows
+        of the reads {r : r % n_shards == shard} in read order, zero-padded
+        to `block` = ceil(N / n_shards) rows, over their rc rows."""
+        block = -(-store.n_reads // n_shards)
+        out = np.zeros((2 * block, store.packed.shape[1]), np.uint32)
+        own = store.packed[shard::n_shards]
+        out[:len(own)] = own
+        out[block:block + len(own)] = store.packed_rc[shard::n_shards]
+        return out
+
+    @classmethod
+    def shard_payload(cls, store: ReadStore, n_shards: int):
         """Host payload layout: reads permuted so that shard s's contiguous
         block holds exactly the reads {r : r % n_shards == s}, padded to
         n_shards * block rows.  Returns (packed_sh, packed_rc_sh, block)."""
-        n = store.n_reads
-        block = -(-n // n_shards)
-        wp = store.packed.shape[1]
-        packed_sh = np.zeros((n_shards * block, wp), np.uint32)
-        packed_rc_sh = np.zeros((n_shards * block, wp), np.uint32)
-        rid = np.arange(n)
-        dst = (rid % n_shards) * block + rid // n_shards
-        packed_sh[dst] = store.packed
-        packed_rc_sh[dst] = store.packed_rc
-        return packed_sh, packed_rc_sh, block
+        block = -(-store.n_reads // n_shards)
+        blocks = [cls.payload_block(store, s, n_shards)
+                  for s in range(n_shards)]
+        return (np.concatenate([b[:block] for b in blocks]),
+                np.concatenate([b[block:] for b in blocks]), block)
 
     # ------------------------------------------------------------------
     def _fetch_rows(self, row_ids, payload, n_reads, block, fetch_cap):
@@ -383,25 +502,30 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
                          (overflow + f_overflow)[None], unions[d][None, :]))
         return tuple(list(x) for x in zip(*outs))
 
-    def make_step(self, store: ReadStore, q_chunk: int):
-        """Returns (step, payload): `payload` = (packed_sh, packed_rc_sh),
-        the host layout of `shard_payload`; step(qread, qj, qcode, marked)
-        over chunks of `q_chunk` windows gives the base engine's outputs.
-        Shard s holds only its block of the payload, forward rows over rc
-        rows."""
+    def _runner(self, store: ReadStore, q_chunk: int):
+        """The dist-mem superstep over the local shards' inputs (the base
+        engine's `_runner`) for chunks of `q_chunk` windows.  Shard s holds
+        only its block of the payload, forward rows over rc rows."""
         n = self.mesh.size
-        packed_sh, packed_rc_sh, block = self.shard_payload(store, n)
+        block = -(-store.n_reads // n)
         fetch_cap = fetch_cap_for(q_chunk, n, self.hit_cap)
-        blocks = [slice(s * block, (s + 1) * block) for s in self.mesh.shards]
-        payload = [as_words(np.concatenate([packed_sh[b], packed_rc_sh[b]]),
-                            d)
-                   for b, d in zip(blocks, self.mesh.devices)]
+        payload = [as_words(self.payload_block(store, s, n), d)
+                   for s, d in zip(self.mesh.shards, self.mesh.devices)]
         shards = self._table_shards()
         lengths = self.mesh.replicate(
             np.ascontiguousarray(store.lengths, np.int32))
 
+        def run(*inputs):
+            return self._superstep_dm(payload, lengths, *inputs, shards,
+                                      store.n_reads, block, fetch_cap)
+        return run
+
+    def make_step(self, store: ReadStore, q_chunk: int):
+        """Returns (step, payload): `payload` = (packed_sh, packed_rc_sh),
+        the host layout of `shard_payload`; step(qread, qj, qcode, marked)
+        over chunks of `q_chunk` windows gives the base engine's outputs."""
+        run = self._runner(store, q_chunk)
+
         def step(qread, qj, qcode, marked):
-            return self._superstep_dm(
-                payload, lengths, *self._inputs(qread, qj, qcode, marked),
-                shards, store.n_reads, block, fetch_cap)
-        return step, (packed_sh, packed_rc_sh)
+            return run(*self._inputs(qread, qj, qcode, marked))
+        return step, self.shard_payload(store, self.mesh.size)[:2]

@@ -13,11 +13,15 @@ JSON line: the walls by backend, in seconds; the seconds the reads took
 to make; whether every file each run wrote (`files`, by suffix) is the
 same in every run; and `runs`, what each port child reported: its peak
 resident set (sampled every 10 ms, `RssPeak`) and at its start, its
-`clock` stages, its K1 and K2 launches, its peak device memory, and, when
-it made the one-pass relation, the reads, the windows, the relation's
-rows and its stats (chunks, fallback chunks, wire row bytes).  The device backend
-needs a CUDA card: without one the tool exits non-zero before it makes
-any data."""
+`clock` stages, its launches of K1, K1's rows route (`K1_rows`) and K2,
+its peak device memory, and, when it made the one-pass relation or the
+distributed one (`buildg -n N [-rma]`), the reads, the windows, the
+relation's rows and its stats (chunks, fallback chunks; the wire row's
+bytes, or the distributed relation's hit_cap), with the distributed
+relation's chunk plan and host seconds by stage (`profile`).  The device
+backend needs a CUDA card: without one the tool exits non-zero before it
+makes any data.  `run_child` runs one such child; chip_smoke.py drives
+its scale phases through it."""
 import argparse
 import json
 import logging
@@ -88,20 +92,32 @@ def child_main(stats_path: str, argv) -> int:
     import torch
     from disco_tpu_torch import cli
     from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.dist import builder
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.utils.logging import log
 
     seen = {}
-    real = pipeline.compute_relation
+    real, real_dist = pipeline.compute_relation, builder.sharded_relation_pruned
+
+    def record(store, table, rel, **more):
+        seen.update(reads=store.n_reads, windows=int(store.lengths.sum())
+                    - store.n_reads * table.k, rows=len(rel),
+                    relation=dict(rel.stats, **more))
 
     def compute_relation(store, table, **kw):
         rel = real(store, table, **kw)
-        seen.update(reads=store.n_reads, windows=int(store.lengths.sum())
-                    - store.n_reads * table.k, rows=len(rel),
-                    relation=rel.stats)
+        record(store, table, rel)
         return rel
 
+    def sharded_relation_pruned(store, table, mesh, **kw):
+        profile = {}
+        out = real_dist(store, table, mesh, profile=profile, **kw)
+        record(store, table, out[0], hit_cap=profile["hit_cap"])
+        seen["profile"] = profile
+        return out
+
     pipeline.compute_relation = compute_relation
+    builder.sharded_relation_pruned = sharded_relation_pruned
     stages = StageWalls()
     for h in log.handlers:        # the stages are collected, not printed
         h.setLevel(max(h.level, logging.WARNING))
@@ -112,12 +128,29 @@ def child_main(stats_path: str, argv) -> int:
     out = {"rc": rc, "rss_peak_bytes": rss.peak, "rss_start_bytes": rss.start,
            "stages": stages.walls,
            "launches": {"K1": fk.fused_compare_dual.launches,
+                        "K1_rows": fk.fused_compare_dual_rows.launches,
                         "K2": fk.fused_compare_dual_fetch.launches},
            "device_peak_bytes": (torch.cuda.max_memory_allocated()
                                  if torch.cuda.is_initialized() else None),
            **seen}
     pathlib.Path(stats_path).write_text(json.dumps(out))
     return rc
+
+
+def run_child(cwd: str, prefix: str, argv, timeout=None) -> tuple:
+    """`python -m disco_tpu_torch buildg <argv> -f <prefix>` in a fresh
+    process (`child_main`) run from `cwd`, timed on the host clock from
+    start to exit; a child still running after `timeout` seconds is killed
+    and raises.  Returns (seconds, what the child reported)."""
+    stats = prefix + ".stats.json"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", CHILD, stats, "buildg", *argv,
+                    "-f", prefix], check=True, cwd=cwd, env=env,
+                   timeout=timeout)
+    return time.perf_counter() - t0, json.loads(
+        pathlib.Path(stats).read_text())
 
 
 def _outputs(td: str, prefix: str) -> dict:
@@ -151,8 +184,6 @@ def main(argv=None) -> int:
         sys.exit(f"bench_e2e: --ref needs {REF_BUILDG}: build the reference "
                  "with tools/build_reference.sh")
 
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
     with tempfile.TemporaryDirectory() as td:
         fasta = os.path.join(td, "reads.fasta")
         t0 = time.perf_counter()
@@ -167,15 +198,10 @@ def main(argv=None) -> int:
 
         walls, runs, outputs = {}, {}, {}
         for backend in backends:
-            stats = os.path.join(td, f"{backend}.stats.json")
-            t0 = time.perf_counter()
-            subprocess.run(
-                [sys.executable, "-c", CHILD, stats, "buildg", "-pe", fasta,
-                 "-f", os.path.join(td, backend), "-backend", backend,
-                 "-m-ovl", str(args.min_overlap)],
-                check=True, cwd=td, env=env)
-            walls[backend] = time.perf_counter() - t0
-            runs[backend] = json.loads(pathlib.Path(stats).read_text())
+            walls[backend], runs[backend] = run_child(
+                td, os.path.join(td, backend),
+                ["-pe", fasta, "-backend", backend, "-m-ovl",
+                 str(args.min_overlap)])
             outputs[backend] = _outputs(td, backend)
 
         if args.ref:

@@ -13,7 +13,7 @@ them.
 Every rank runs through `RANK_LAUNCHER`, which prints what a rank alone
 can tell after `multiproc.main` returns: its launch counts (they are per
 process), the bytes it receives from its peers through each collective
-(the hit grids' gathers apart) and the seconds it spends in each (the card
+(the kept rows' and their counts' gathers apart) and the seconds it spends in each (the card
 synchronised before and after every call, so the ranks lose the overlap
 of an exchange with earlier work), its chunks, `clock` stages, wall and
 peak device memory.  Prints one JSON line: the card lines of `nvidia-smi`, the
@@ -42,7 +42,7 @@ from disco_tpu_torch.dist import builder, multiproc
 from disco_tpu_torch.overlap import fused_kernel as fk
 from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
 
-rec = {"all_to_all": 0, "all_gather": 0, "grids": 0, "all_to_all_s": 0.0,
+rec = {"all_to_all": 0, "all_gather": 0, "collect": 0, "all_to_all_s": 0.0,
        "all_gather_s": 0.0, "stages": []}
 
 
@@ -86,7 +86,7 @@ real_gather_host, real_relation = (builder.gather_host,
 
 def gather_host(mesh, xs):
     out = real_gather_host(mesh, xs)
-    rec["grids"] += from_peers(out.nbytes)
+    rec["collect"] += from_peers(out.nbytes)
     return out
 
 
@@ -227,7 +227,7 @@ def main(argv=None):
                 "ranks": [{k: rec[k] for k in (
                     "wall", "rows", "columns", "k2", "designs", "peak")}
                     | {f"{k}_per_superstep": rec[k] / chunks for k in (
-                        "all_to_all", "all_gather", "grids")}
+                        "all_to_all", "all_gather", "collect")}
                     | {k: rec[k] for k in ("all_to_all_s", "all_gather_s")}
                     for rec in recs]}
             # one process, a shard on each card

@@ -1033,6 +1033,62 @@ def test_dist_buildg_forced_overflow_on_the_card(cuda_device, dist_mem,
                 == (MINI / f"mini{suffix}").read_bytes()), suffix
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_mem", [False, True], ids=["replicated",
+                                                          "dist_mem"])
+def test_streamed_relation_on_the_card_matches_cpu(cuda_device, dist_mem,
+                                                   monkeypatch):
+    """The streamed sharded relation on mini, four shards on the card,
+    unpruned and pruned, equals the same relation on four CPU shards (the
+    plain versions), row for row, with the same stats; the rows route
+    launched once a shard a chunk and the column kernel never; each chunk's
+    compaction ran with host synchronisation made an error, and the host
+    read the shards' counts once a chunk (then their rows)."""
+    from disco_tpu_torch.dist import builder
+    from disco_tpu_torch.dist.mesh import make_mesh
+
+    store, table = _mini_state()
+    real_compact, real_gather = builder.compact, builder.gather_host
+    reads = []
+
+    def compact(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_compact(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def gather_host(mesh, xs):
+        reads.append(len(xs[0]) if xs[0].dim() == 1 else "rows")
+        return real_gather(mesh, xs)
+
+    monkeypatch.setattr(builder, "compact", compact)
+    monkeypatch.setattr(builder, "gather_host", gather_host)
+    kw = dict(budget=1 << 16, dist_mem=dist_mem)
+    for relation in (builder.sharded_relation,
+                     builder.sharded_relation_pruned):
+        rows, columns = (port.fused_compare_dual_rows.launches,
+                         port.fused_compare_dual.launches)
+        stats, want_stats = {}, {}
+        reads.clear()
+        got = relation(store, table, make_mesh(4), stats=stats, **kw)
+        torch.cuda.synchronize()
+        assert port.fused_compare_dual_rows.launches == \
+            rows + 4 * stats["chunks"]
+        assert port.fused_compare_dual.launches == columns
+        assert reads == [2, "rows"] * stats["chunks"]
+        want = relation(store, table, make_mesh(4, "cpu"), stats=want_stats,
+                        **kw)
+        if isinstance(got, tuple):
+            for a, b in zip(got[1:], want[1:]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            got, want = got[0], want[0]
+        assert stats == want_stats and stats["chunks"] > 3
+        assert len(got) == len(want) > 0
+        for f in ("r1", "j", "r2", "orient", "typ", "cont_ok", "edge_ok"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
 # ---------------------------------------------------------------------------
 # the hit-cap grid engine (overlap/device.py): K1's rows route on the card
 # ---------------------------------------------------------------------------

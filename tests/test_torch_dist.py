@@ -25,6 +25,7 @@ from disco_tpu_torch.buildg.pipeline import run_buildg
 from disco_tpu_torch.convert import state_from_reference
 from disco_tpu_torch.dist import builder, mesh as tmesh
 from disco_tpu_torch.dist import overlap_shard as tshard
+from disco_tpu_torch.overlap import relation as port_relation
 from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
@@ -496,7 +497,7 @@ def test_payload_partitioned(mini):
     assert packed_sh.shape[0] == n * block
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tshard.DistMemOverlapEngine, "_fetch_rows", spy)
-        qread, qj, qcode = builder.window_codes(pstore, ptable.k)
+        qread, qj, qcode = port_relation.window_codes(pstore, ptable.k)
         step(qread[:64 * n], qj[:64 * n], qcode[:64 * n],
              np.zeros(n * block, np.int32))
     rid = np.arange(pstore.n_reads)
@@ -628,7 +629,7 @@ def test_bench_scaling_model_matches_jax_tool():
         assert port_tool.superstep_bytes(*args) == jax_tool.superstep_bytes(
             *args)
     store, table = port_tool.read_set(4, 2000, 120, 40)
-    q = len(builder.window_codes(store, table.k)[0])
+    q = len(port_relation.window_codes(store, table.k)[0])
     hit_cap, chunk, route_cap = builder.chunk_plan(table, q, 4, None,
                                                    1 << 12)
     _, counts = np.unique(table.keys, return_counts=True)

@@ -221,6 +221,83 @@ def test_relation_matches_one_process(rank_relations, mini_state, dist_mem,
     assert (stats["fallback_chunks"] > 0) == (case != "caps")
 
 
+PRUNED = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from disco_tpu_torch.dist import builder
+from disco_tpu_torch.dist.mesh import process_mesh
+from disco_tpu_torch.dist.multiproc import exit_rank
+from disco_tpu_torch.index.table import FingerprintTable
+from disco_tpu_torch.io.readstore import ReadStore
+
+port, rank, out = sys.argv[1:]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + port,
+                        world_size=2, rank=int(rank))
+store = ReadStore.from_files([{fasta!r}], [], 30,
+                             reference_task_order=False)
+table = FingerprintTable.build(store, 29)
+stats, pulls = {{}}, []
+real = builder._pull
+
+
+def pull(*a):
+    rows = real(*a)
+    pulls.append(-1 if rows is None else len(rows))
+    return rows
+
+
+builder._pull = pull
+rel, superread, lines = builder.sharded_relation_pruned(
+    store, table, process_mesh(1, torch.device("cpu")), stats=stats,
+    **{kw!r})
+np.savez(out, superread=superread, lines=np.array(lines), pulls=pulls,
+         stats=[stats["chunks"], stats["fallback_chunks"]],
+         **{{f: getattr(rel, f) for f in {fields!r}}})
+dist.destroy_process_group()
+exit_rank(0)
+"""
+# some chunks of mini overflow hit_cap 2 and are re-run, the rest come
+# through the compacted collect
+PRUNED_KW = {"budget": 1 << 12, "hit_cap": 2, "dist_mem": True}
+
+
+def test_compacted_collect_across_ranks(mini_state, tmp_path):
+    """Two ranks of one CPU shard each under gloo run the pruned relation
+    through the compacted collect (`builder._pull`: the counts gathered,
+    then the rows padded to the largest), with forced overflows: both
+    ranks hold the same rows, superread and contained-read lines as the
+    one-process mesh of 2 shards, pull the same row counts and re-run the
+    same chunks."""
+    store, table = mini_state
+    code = PRUNED.format(fasta=str(MINI / "reads.fasta"), kw=PRUNED_KW,
+                         fields=FIELDS)
+    port = _free_port()
+    npz = [tmp_path / f"rank{r}.npz" for r in range(2)]
+    _run_ranks([_script(code, port, r, npz[r]) for r in range(2)],
+               [tmp_path, tmp_path], tmp_path)
+    stats = {}
+    want, want_sr, want_lines = builder.sharded_relation_pruned(
+        store, table, tmesh.make_mesh(2, "cpu"), stats=stats, **PRUNED_KW)
+    got = [dict(np.load(p)) for p in npz]
+    for rank, g in enumerate(got):
+        for f in FIELDS:
+            assert g[f].dtype == getattr(want, f).dtype, (rank, f)
+            np.testing.assert_array_equal(g[f], getattr(want, f),
+                                          err_msg=f"rank {rank} {f}")
+        np.testing.assert_array_equal(g["superread"], want_sr)
+        assert g["lines"].tolist() == want_lines
+        assert g["stats"].tolist() == [stats["chunks"],
+                                       stats["fallback_chunks"]]
+    np.testing.assert_array_equal(got[0]["pulls"], got[1]["pulls"])
+    pulls = got[0]["pulls"]
+    assert len(pulls) == stats["chunks"] and (pulls > 0).sum() > 2
+    assert (pulls == -1).sum() == stats["fallback_chunks"] > 0
+    assert len(want_lines) > 0
+
+
 # ---------------------------------------------------------------------------
 # the collectives
 # ---------------------------------------------------------------------------
