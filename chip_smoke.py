@@ -107,7 +107,11 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    each `clock` stage, the host's peak RSS during the run (sampled every
    10 ms, after the heap earlier phases freed is returned to the OS) and
    at its start, the contigs' and scaffolds' counts and N50 from the port's
-   `stats`, and the card's name and power limit;
+   `stats`, the genome check (the reads carry no errors: the genome drawn
+   again from the seed, every contig and every scaffold piece between runs
+   of N an exact substring of it or its reverse complement,
+   tools/assemble_scale.py's `genome_check`), and the card's name and
+   power limit;
 10. the distributed buildG (`python -m disco_tpu_torch buildg -n 4
    [-rma]`, dist/builder.py), four shards on the one card:
    __graft_entry__.py's three dryrun_multichip runs (replicated, dist-mem,
@@ -306,6 +310,7 @@ HELD = ("K6", "T3")
 # (30x, 250 bp, insert 500, seed 42) instead of the 4.6 Mb set, to leave
 # phases 13 and 14 room in the smoke's time limit
 CUT_GENOME = 1_000_000
+SET_SEED = 42                # phase 3's seed, of both sets
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 INT32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 OUTPUTS = ("_0_parGraph.txt", "_0_containedReads.txt", "_ReadIDMap.txt",
@@ -1815,14 +1820,16 @@ def assemble_phase(tmp: pathlib.Path, cut: pathlib.Path, walls):
     """`assemble -backend device` through the command line, in this
     process: on the golden `mini` against the reference's outputs, then on
     the cut set (`cut`, CUT_GENOME) with the K1 and K2 counts set to 0 just
-    before, its graph against phase 5's native files of the cut set and
-    its assembly against `simplify` over those native files.  Returns the
+    before, its graph against phase 5's native files of the cut set, its
+    assembly against `simplify` over those native files and its contigs
+    and scaffold pieces against the genome.  Returns the
     launches."""
     import torch
     from disco_tpu_torch import cli
     from disco_tpu_torch.buildg import pipeline
     from disco_tpu_torch.overlap import fused_kernel as fk
     from disco_tpu_torch.simplify import driver
+    from disco_tpu_torch.tools.assemble_scale import draw_genome, genome_check
     from disco_tpu_torch.tools.bench_e2e import RssPeak
     from disco_tpu_torch.utils.logging import malloc_trim
     from disco_tpu_torch.utils.stats import assembly_stats
@@ -1925,6 +1932,21 @@ def assemble_phase(tmp: pathlib.Path, cut: pathlib.Path, walls):
         check(st.n_contigs > 0 and st.n50 > 0, f"no {kind}")
         say(f"assemble: {kind}: {st.n_contigs} sequences, N50 {st.n50} bp, "
             f"{st.total_len} bp in all, longest {st.max_len} bp")
+    # the reads carry no errors: every contig and scaffold piece lies in
+    # the genome they were drawn from, or in its reverse complement
+    t0 = time.perf_counter()
+    held = genome_check(draw_genome(CUT_GENOME, SET_SEED),
+                        sorted(asm.glob("E_contigsFinal_*.fasta")),
+                        sorted(asm.glob("E_scaffoldsFinal_*.fasta")))
+    check(held["ok"], f"assemble: the genome check failed: {held}")
+    ctg, scf = held["contigs"], held["scaffolds"]
+    say(f"assemble: genome check ({CUT_GENOME} bp, seed {SET_SEED}, drawn "
+        f"again): all {ctg['pieces']} contigs of {ctg['files']} files and "
+        f"all {scf['pieces']} scaffold pieces between runs of N (of "
+        f"{scf['sequences']} scaffolds, longest {scf['longest']} bp, "
+        f"covering {scf['longest_covers']:.6f} of the genome) lie exactly "
+        f"in the genome or its reverse complement; "
+        f"{time.perf_counter() - t0:.2f} s")
     say(f"assemble: card {card_line()}")
     return launches
 
@@ -3094,7 +3116,8 @@ def main(argv=None) -> int:
                 [sys.executable, str(ROOT / "tools" / "make_testdata.py"),
                  str(path), "--genome-len", str(genome_len), "--coverage",
                  str(args.coverage), "--read-len", "250", "--insert", "500",
-                 "--seed", "42"], check=True, stdout=subprocess.DEVNULL)
+                 "--seed", str(SET_SEED)], check=True,
+                stdout=subprocess.DEVNULL)
 
         fasta = tmp / "reads.fasta"
         cut = tmp / "cut.fasta"      # CUT_GENOME

@@ -69,6 +69,21 @@ def _build_target(args):
     return None, args.backend
 
 
+def _hand_off() -> None:
+    """Give back what buildG freed before fullsimplify starts: objects
+    held in reference cycles, the free pages glibc keeps in its heap, and
+    the CUDA allocator's cached blocks when the card was used
+    (fullsimplify runs on the host alone).  Without it fullsimplify's
+    memory stacks on top of buildG's leavings."""
+    import gc
+    from .utils.logging import malloc_trim
+    gc.collect()
+    malloc_trim()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
 def cmd_assemble(args) -> int:
     """reads -> graph -> contigs and scaffolds.  -backend selects buildG's
     overlap engine (default `default_backend()`: the device when a card is
@@ -132,6 +147,8 @@ def cmd_assemble(args) -> int:
                    backend=backend)
 
     if not args.obg:
+        if not args.osg:
+            _hand_off()
         edge_files = sorted(glob.glob(graph_prefix + "_*_parGraph.txt"))
         crd_files = sorted(glob.glob(graph_prefix + "_*_containedReads.txt"))
         param_files = [p for p in (args.p, args.p2 or args.p,

@@ -20,8 +20,12 @@ relation's rows and its stats (chunks, fallback chunks; the wire row's
 bytes, or the distributed relation's hit_cap), with the distributed
 relation's chunk plan and host seconds by stage (`profile`).  The device
 backend needs a CUDA card: without one the tool exits non-zero before it
-makes any data.  `run_child` runs one such child; chip_smoke.py drives
-its scale phases through it."""
+makes any data.  `run_child` runs one such child, of `buildg` or of
+`assemble`; chip_smoke.py drives its scale phases through it, and
+tools/assemble_scale.py its assemble runs.  An `assemble` child also
+reports buildG's wall and fullsimplify's, the resident set as buildG
+returned and as fullsimplify started (`rss_handoff_bytes`), and
+fullsimplify's stages by iteration."""
 import argparse
 import json
 import logging
@@ -124,6 +128,8 @@ def child_main(stats_path: str, argv) -> int:
     log.addHandler(stages)
     log.setLevel(min(log.level, logging.INFO))
     with RssPeak() as rss:
+        if argv[0] == "assemble":
+            _watch_assemble(seen, stages, rss)
         rc = cli.main(list(argv))
     out = {"rc": rc, "rss_peak_bytes": rss.peak, "rss_start_bytes": rss.start,
            "stages": stages.walls,
@@ -137,17 +143,69 @@ def child_main(stats_path: str, argv) -> int:
     return rc
 
 
-def run_child(cwd: str, prefix: str, argv, timeout=None) -> tuple:
-    """`python -m disco_tpu_torch buildg <argv> -f <prefix>` in a fresh
-    process (`child_main`) run from `cwd`, timed on the host clock from
-    start to exit; a child still running after `timeout` seconds is killed
-    and raises.  Returns (seconds, what the child reported)."""
+def _watch_assemble(seen: dict, stages: StageWalls, rss: RssPeak):
+    """Wrap the stages of `assemble` for good in this process, recording
+    into `seen`: buildG's wall (either build) and the resident set as it
+    returns (`rss_buildg_end_bytes`), fullsimplify's wall and the resident
+    set as it starts (`rss_handoff_bytes`), and each iteration's wall and
+    `clock` stages."""
+    from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.dist import builder
+    from disco_tpu_torch.simplify import driver
+
+    def timed(module, name, key, rss_key, at_start):
+        real = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            if at_start:
+                seen[rss_key] = rss._sample()
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                seen[key] = time.perf_counter() - t0
+                if not at_start:
+                    seen[rss_key] = rss._sample()
+        setattr(module, name, wrapper)
+
+    iterations = seen.setdefault("iterations", [])
+    real_iteration = driver._simplify_iteration
+
+    def simplify_iteration(dataset, params, edge_files, prefix, iteration,
+                           *a, **kw):
+        first, t0 = len(stages.walls), time.perf_counter()
+        out = real_iteration(dataset, params, edge_files, prefix, iteration,
+                             *a, **kw)
+        iterations.append({"iteration": iteration,
+                           "wall_s": time.perf_counter() - t0,
+                           "continue": out["continue"],
+                           "stages": stages.walls[first:]})
+        return out
+
+    for module, name in ((pipeline, "run_buildg"),
+                         (builder, "run_buildg_sharded")):
+        timed(module, name, "buildg_s", "rss_buildg_end_bytes", False)
+    timed(driver, "run_fullsimplify", "fullsimplify_s", "rss_handoff_bytes",
+          True)
+    driver._simplify_iteration = simplify_iteration
+
+
+def run_child(cwd: str, prefix: str, argv, timeout=None,
+              command: str = "buildg") -> tuple:
+    """`python -m disco_tpu_torch <command> <argv>` in a fresh process
+    (`child_main`) run from `cwd`, timed on the host clock from start to
+    exit: `buildg` writes to `-f <prefix>`, `assemble` into the directory
+    `-d <prefix>` under the name `-o <its last component>`.  A child still
+    running after `timeout` seconds is killed and raises.  Returns
+    (seconds, what the child reported)."""
     stats = prefix + ".stats.json"
+    out = {"buildg": ["-f", prefix],
+           "assemble": ["-d", prefix, "-o", pathlib.Path(prefix).name]}
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-c", CHILD, stats, "buildg", *argv,
-                    "-f", prefix], check=True, cwd=cwd, env=env,
+    subprocess.run([sys.executable, "-c", CHILD, stats, command, *argv,
+                    *out[command]], check=True, cwd=cwd, env=env,
                    timeout=timeout)
     return time.perf_counter() - t0, json.loads(
         pathlib.Path(stats).read_text())

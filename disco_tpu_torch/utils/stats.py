@@ -103,7 +103,7 @@ def assembly_stats(fasta: str, min_len: int = 0) -> AssemblyStats:
             continue
         lengths.append(len(seq))
         total += len(seq)
-        gc += sum(1 for c in seq if c in "GCgc")
+        gc += sum(map(seq.count, "GCgc"))
     return _finish(lengths, total, gc)
 
 

@@ -69,6 +69,38 @@ def test_assemble_graph_then_simplify(tmp_path, monkeypatch):
     assert_same_tree(tmp_path / "whole", tmp_path / "split")
 
 
+def test_assemble_hands_off_between_the_stages(tmp_path, monkeypatch):
+    """assemble gives back buildG's leavings (`_hand_off`) once, after
+    buildG and before fullsimplify; -obg and -osg, which run one stage
+    each, do not; the tree is the same as one whole run's."""
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.buildg import pipeline
+    from disco_tpu_torch.simplify import driver
+
+    calls = []
+
+    def logged(mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            calls.append(name)
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapper)
+
+    for mod, name in ((pipeline, "run_buildg"),
+                      (driver, "run_fullsimplify"), (cli, "_hand_off")):
+        logged(mod, name)
+    monkeypatch.chdir(MINI)
+    assert _assemble(tmain, tmp_path / "whole", "-backend", "native") == 0
+    assert calls == ["run_buildg", "_hand_off", "run_fullsimplify"]
+    for flag, stage in (("-obg", "run_buildg"), ("-osg", "run_fullsimplify")):
+        calls.clear()
+        assert _assemble(tmain, tmp_path / "split", "-backend", "native",
+                         flag) == 0
+        assert calls == [stage]
+    assert_same_tree(tmp_path / "whole", tmp_path / "split")
+
+
 def test_assemble_device_without_card_raises(tmp_path, monkeypatch):
     """-backend device takes the card; without one it raises before any
     graph is written, and nothing falls back to the native backend."""

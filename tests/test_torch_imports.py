@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax():
               "simplify.cytoscape", "simplify.driver", "utils.stats",
               "dist", "dist.mesh", "dist.overlap_shard", "dist.builder",
               "dist.multiproc", "preprocess", "tools.bench_scaling",
-              "tools.bench_e2e", "buildg.replay", "overlap.device", "cli"):
+              "tools.bench_e2e", "tools.assemble_scale", "buildg.replay",
+              "overlap.device", "cli"):
         assert "disco_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
