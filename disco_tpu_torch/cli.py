@@ -31,8 +31,14 @@ import os
 import shutil
 import sys
 
+from .utils.logging import RECORDER, job
+
 # names a directory: every subcommand then runs under a profiler trace
 TRACE_ENV = "DISCO_TPU_TORCH_TRACE"
+# the trace's one marker range, and the track (a process id no real
+# process or card of the trace has, and its name) of the program's spans
+TRACE_MARK = "disco_tpu_torch.subcommand"
+SPAN_PID, SPAN_TRACK = 1 << 30, "disco_tpu_torch spans"
 
 
 def _cfg_min_overlap(path: str, default: int = 30) -> int:
@@ -406,11 +412,13 @@ def main(argv=None) -> int:
     s.add_argument("-m", "--min-len", type=int, default=0)
     s.set_defaults(fn=cmd_stats)
 
-    args = ap.parse_args(argv)
-    trace_dir = os.environ.get(TRACE_ENV)
-    if trace_dir:
-        return _traced(args, trace_dir)
-    return args.fn(args)
+    # every call is one job of the span recorder (utils/logging.py)
+    with job():
+        args = ap.parse_args(argv)
+        trace_dir = os.environ.get(TRACE_ENV)
+        if trace_dir:
+            return _traced(args, trace_dir)
+        return args.fn(args)
 
 
 def _traced(args, trace_dir: str) -> int:
@@ -418,22 +426,61 @@ def _traced(args, trace_dir: str) -> int:
     the card's kernels and copies when a card is present) and write a
     Chrome trace, `<cmd>.<pid>.trace.json`, into `trace_dir` (the
     reference ships runDisco-MPI-AllineaMAP.sh to run under a profiler;
-    disco_tpu's counterpart is its jax.profiler trace)."""
+    disco_tpu's counterpart is its jax.profiler trace).  The job's program
+    spans join the trace as complete events on a track of their own
+    (SPAN_PID), placed on the profiler's clock through one marker
+    range, TRACE_MARK, around the subcommand: the only range this enters
+    into the profiler."""
+    import time
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
+    t_mark = time.perf_counter_ns()
     try:
-        return args.fn(args)
+        with record_function(TRACE_MARK):
+            return args.fn(args)
     finally:
         # written also when the subcommand raises, as jax's trace is
         prof.stop()
-        prof.export_chrome_trace(os.path.join(
-            trace_dir, f"{args.cmd}.{os.getpid()}.trace.json"))
+        path = os.path.join(trace_dir,
+                            f"{args.cmd}.{os.getpid()}.trace.json")
+        prof.export_chrome_trace(path)
+        _add_spans(path, t_mark, RECORDER.spans(RECORDER.current_job()))
+
+
+def _add_spans(path: str, t_mark: int, spans) -> None:
+    """Write the program's `spans` (utils/logging.py) into the Chrome trace
+    at `path` as complete events of the track SPAN_PID, one thread a
+    nesting depth, shifted so that `t_mark` (perf_counter ns) falls on the
+    start of the trace's TRACE_MARK range."""
+    import json
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    marks = [e["ts"] for e in events
+             if e.get("name") == TRACE_MARK and e.get("ph") == "X"]
+    if not marks or not spans:
+        return
+    shift = float(min(marks)) - t_mark / 1e3
+    depth = {}
+    for s in sorted(spans, key=lambda s: (s["t0"], -s["t1"])):
+        depth[s["id"]] = depth.get(s["parent"], -1) + 1
+    events.append({"ph": "M", "name": "process_name", "pid": SPAN_PID,
+                   "tid": 0, "args": {"name": SPAN_TRACK}})
+    for s in spans:
+        events.append({"ph": "X", "cat": "program_span", "name": s["name"],
+                       "pid": SPAN_PID, "tid": depth[s["id"]],
+                       "ts": s["t0"] / 1e3 + shift,
+                       "dur": (s["t1"] - s["t0"]) / 1e3,
+                       "args": {"id": s["id"], "parent": s["parent"]}})
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,6 @@ on different collectives.  disco_tpu's multiproc raises on an overflow
 instead; here every rank re-runs the chunk exactly (`_chunk_fallback`) and
 gets the same rows."""
 import os
-import time
-from contextlib import contextmanager
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -43,15 +41,16 @@ from ..overlap.device import chunk_windows, window_offsets
 from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
                                 relation_order, window_codes_at)
 from ..overlap.verify import make_packed_all
-from ..utils.logging import clock
+from ..utils.logging import RECORDER, clock, span
 from .mesh import Mesh, gather_host, make_mesh
 from .overlap_shard import DistMemOverlapEngine, ShardedOverlapEngine, compact
 
-# the host's stages of the chunk loop, whose seconds `_relation` adds up:
-# the marked mask, the windows' inputs staged for the devices, the step and
-# compaction enqueued, the count read and rows pulled (the wait for the
-# devices included), the rows decoded and ordered, the containment replay,
-# and the exact re-runs
+# the host's stages of the chunk loop, each the span "relation.<stage>"
+# (utils/logging.py), whose seconds `_relation` adds up: the marked mask,
+# the windows' inputs staged for the devices, the step and compaction
+# enqueued, the count read and rows pulled (the wait for the devices
+# included), the rows decoded and ordered, the containment replay, and the
+# exact re-runs
 HOST_STAGES = ("marked", "windows", "step", "pull", "order", "replay",
                "fallback")
 
@@ -151,13 +150,10 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
     stats.setdefault("chunks", 0)
     profile = profile if profile is not None else {}
     profile.update(hit_cap=hit_cap, chunk=chunk, route_cap=route_cap)
-    secs = profile.setdefault("host_s", dict.fromkeys(HOST_STAGES, 0.0))
+    before = RECORDER.totals()
 
-    @contextmanager
     def stage(name):
-        t0 = time.perf_counter()
-        yield
-        secs[name] += time.perf_counter() - t0
+        return span("relation." + name)
 
     def emit(r1, j, r2, orient, typ, edge_ok, cont_ok):
         """Append one chunk's rows in relation order; with `prune`, advance
@@ -232,6 +228,12 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
                    else np.zeros(0, dtype))
             for name, dtype in _COLUMNS.items()}
     rel = OverlapRelation(**rows, k=k, stats=dict(stats))
+    after = RECORDER.totals()
+    secs = profile.setdefault("host_s", dict.fromkeys(HOST_STAGES, 0.0))
+    for name in HOST_STAGES:
+        key = "relation." + name
+        secs[name] += (after.get(key, (0, 0.0))[1]
+                       - before.get(key, (0, 0.0))[1])
     return rel, superread, cont_lines
 
 

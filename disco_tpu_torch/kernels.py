@@ -13,12 +13,16 @@ ctypes, both built into BUILD_DIR (listed in .gitignore):
 
 A library is rebuilt when it is missing or older than one of its sources
 or of the headers they include (`deps`).  Each build writes a private temporary file and renames it into place, so
-processes that build the same library at once do not see half a file."""
+processes that build the same library at once do not see half a file.
+A compile is the span `kernels.build`, a load `kernels.load`
+(utils/logging.py)."""
 import ctypes
 import os
 import pathlib
 import shutil
 import subprocess
+
+from .utils.logging import span
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
@@ -41,8 +45,9 @@ def _build(out: pathlib.Path, sources, cmd, deps=()) -> pathlib.Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    subprocess.run([*cmd, "-o", str(tmp), *map(str, srcs)], check=True)
-    os.replace(tmp, out)
+    with span("kernels.build"):
+        subprocess.run([*cmd, "-o", str(tmp), *map(str, srcs)], check=True)
+        os.replace(tmp, out)
     return out
 
 
@@ -61,11 +66,13 @@ def load_cuda(name: str, deps=()) -> ctypes.CDLL:
     so = _build(BUILD_DIR / f"lib{name}.so", [CSRC / f"{name}.cu"],
                 [nvcc(), CUDA_ARCH, "-std=c++17", "-O3", "-shared",
                  "-Xcompiler", "-fPIC"], deps=[CSRC / d for d in deps])
-    return ctypes.CDLL(str(so))
+    with span("kernels.load"):
+        return ctypes.CDLL(str(so))
 
 
 def load_native(name: str, opt: str = "-O2", extra=()) -> ctypes.CDLL:
     """Compile native/src/<name>.cpp with g++ (once) and load it."""
     so = _build(BUILD_DIR / f"_{name}.so", [NATIVE_SRC / f"{name}.cpp"],
                 ["g++", opt, "-shared", "-fPIC", "-std=c++17", *extra])
-    return ctypes.CDLL(str(so))
+    with span("kernels.load"):
+        return ctypes.CDLL(str(so))

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.logging import span
 from .fused_kernel import (fused_compare_dual, fused_compare_dual_fetch,
                            fused_compare_dual_rows)
 from .relation import _default_device
@@ -529,13 +530,17 @@ class DeviceOverlapEngine:
         """Yield (head, *step(padded part)) for each (head, part, chunk) of
         `parts`, a part shorter than `chunk` padded with repeats of its
         final window, through a 1-deep dispatch pipeline: chunk i+1 is
-        enqueued before chunk i is handed out."""
+        enqueued before chunk i is handed out.  The padding is a
+        `relation.windows` span, the step a `relation.step` span: the
+        starts copied to the device and the chunk's work enqueued."""
         pending = None
         for head, part, chunk in parts:
             if len(part) < chunk:
-                part = np.concatenate(
-                    [part, np.full(chunk - len(part), part[-1], part.dtype)])
-            res = step(part)
+                with span("relation.windows"):
+                    part = np.concatenate([part, np.full(
+                        chunk - len(part), part[-1], part.dtype)])
+            with span("relation.step"):
+                res = step(part)
             self.stats["chunks"] += 1
             if pending is not None:
                 yield pending
@@ -559,8 +564,10 @@ class DeviceOverlapEngine:
 
         def parts():
             for s in range(0, q, chunk):
-                read, j = chunk_windows(woff, s, min(s + chunk, q))
-                yield (read, j), read * self.store.max_len + j, chunk
+                with span("relation.windows"):
+                    read, j = chunk_windows(woff, s, min(s + chunk, q))
+                    starts = read * self.store.max_len + j
+                yield (read, j), starts, chunk
 
         if rbits is None:
             def step(part):

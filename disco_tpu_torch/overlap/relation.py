@@ -30,6 +30,7 @@ import torch
 
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
+from ..utils.logging import count, span
 from . import verify as _verify
 
 BACKEND_ENV = "DISCO_TPU_TORCH_BACKEND"
@@ -320,7 +321,15 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
     `rbits` widens the 4-byte row's read field (more escapes; it is never
     narrower than the read ids need).  `fetch` picks the check: K2 (True)
     or K1's rows route.  Displaces the reference's hot loop
-    (src/BuildGraph/src/OverlapGraph.cpp:631-674)."""
+    (src/BuildGraph/src/OverlapGraph.cpp:631-674).
+
+    Its spans (utils/logging.py): `relation.upload` (the engine built),
+    the engine's `relation.windows` and `relation.step` a chunk, then
+    `relation.wait` (pull 1, which waits for the chunk's kernels),
+    `relation.pull` (the rows), `relation.decode`, `relation.order`,
+    `relation.fallback` (a re-run) and `relation.join`; its counters
+    `relation.candidates` (the chunks' candidates) and `relation.slots`
+    (cand_cap a chunk: the slots the check ran on)."""
     from .device import DeviceOverlapEngine
 
     device = torch.device(device) if device is not None else _default_device()
@@ -330,47 +339,62 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
         chunk = 1 << 20 if device.type == "cuda" else 1 << 14
     cand_cap = int(cand_factor * chunk)
     k = table.k
-    eng = DeviceOverlapEngine(store, table, device=device, fetch=fetch)
+    with span("relation.upload"):
+        eng = DeviceOverlapEngine(store, table, device=device, fetch=fetch)
     fidx = store.file_index
     parts = {name: [] for name in _COLUMNS}
 
     def emit(wi, r1, j, r2, orient, typ, flags):
         """Append one chunk's rows, `wi` their windows' index in the chunk
         (non-decreasing), in relation order."""
-        order = relation_order(wi, fidx[r2], typ)
-        for name, col in (("r1", r1), ("j", j), ("r2", r2),
-                          ("orient", orient), ("typ", typ),
-                          ("edge_ok", flags & 1), ("cont_ok", flags & 2)):
-            parts[name].append(col[order].astype(_COLUMNS[name]))
+        with span("relation.order"):
+            order = relation_order(wi, fidx[r2], typ)
+            for name, col in (("r1", r1), ("j", j), ("r2", r2),
+                              ("orient", orient), ("typ", typ),
+                              ("edge_ok", flags & 1), ("cont_ok", flags & 2)):
+                parts[name].append(col[order].astype(_COLUMNS[name]))
+
+    def wait(meta):
+        """Pull 1, the chunk's counts: it waits for the chunk's kernels."""
+        with span("relation.wait"):
+            meta = meta.cpu().numpy()
+        count("relation.candidates", int(meta[1]))
+        count("relation.slots", cand_cap)
+        return meta
 
     def rerun_if_over(read, jj, meta):
         if int(meta[1]) <= cand_cap and int(meta[0]) <= chunk:
             return False
         # static-cap overflow: exact re-run of the whole chunk, codes made
         # for its windows alone
-        eng.stats["fallback_chunks"] += 1
-        fb = _xla_rows(store, table, read, jj,
-                       window_codes_at(store, read, jj, k),
-                       packed_all=eng.packed_all)
-        starts = read * store.max_len + jj
-        wi = np.searchsorted(starts, fb["r1"].astype(np.int64)
-                             * store.max_len + fb["j"])
+        with span("relation.fallback"):
+            eng.stats["fallback_chunks"] += 1
+            fb = _xla_rows(store, table, read, jj,
+                           window_codes_at(store, read, jj, k),
+                           packed_all=eng.packed_all)
+            starts = read * store.max_len + jj
+            wi = np.searchsorted(starts, fb["r1"].astype(np.int64)
+                                 * store.max_len + fb["j"])
         emit(wi, fb["r1"], fb["j"], fb["r2"], fb["orient"], fb["typ"],
              fb["edge_ok"] | (fb["cont_ok"].astype(np.int8) << 1))
         return True
 
     def hits(read, jj, wi, r2, orient, typ, flags):
+        """The chunk's rows of real windows, as `emit` takes them."""
         sel = wi < len(read)  # drop pad-window repeats
         wi = wi[sel]
-        emit(wi, read[wi], jj[wi], r2[sel], orient[sel], typ[sel],
-             flags[sel])
+        return (wi, read[wi], jj[wi], r2[sel], orient[sel], typ[sel],
+                flags[sel])
 
     def collect(read, jj, data, meta):
-        meta = meta.cpu().numpy()          # pull 1: [n_hits, n_candidates]
+        meta = wait(meta)                  # pull 1: [n_hits, n_candidates]
         if rerun_if_over(read, jj, meta):
             return
-        # pull 2: the occupied rows
-        hits(read, jj, *decode_wire64(data[:, :int(meta[0])].cpu().numpy()))
+        with span("relation.pull"):        # pull 2: the occupied rows
+            rows = data[:, :int(meta[0])].cpu().numpy()
+        with span("relation.decode"):
+            rows = hits(read, jj, *decode_wire64(rows))
+        emit(*rows)
 
     needed = max(int(store.n_reads).bit_length() + 1, 8)
     rbits = max(rbits or needed, needed)
@@ -379,14 +403,19 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
     esc_code = (1 << dbits) - 1
 
     def collect32(read, jj, word, esc_stream, meta):
-        meta = meta.cpu().numpy()       # pull 1: [n_hits, n_cand, n_esc]
+        meta = wait(meta)               # pull 1: [n_hits, n_cand, n_esc]
         if rerun_if_over(read, jj, meta):
             return
-        count = int(meta[0])
-        w = word[:count].cpu().numpy().view(np.uint32)   # pull 2
-        n_esc = int(meta[2])
-        esc_vals = (esc_stream[:n_esc].cpu().numpy().astype(np.int64)
-                    if n_esc else np.zeros(0, np.int64))  # pull 3 (rare)
+        n_rows, n_esc = int(meta[0]), int(meta[2])
+        with span("relation.pull"):
+            w = word[:n_rows].cpu().numpy().view(np.uint32)   # pull 2
+            esc_vals = (esc_stream[:n_esc].cpu().numpy().astype(np.int64)
+                        if n_esc else np.zeros(0, np.int64))  # pull 3 (rare)
+        with span("relation.decode"):
+            rows = decode32(read, jj, w, n_rows, n_esc, esc_vals)
+        emit(*rows)
+
+    def decode32(read, jj, w, n_rows, n_esc, esc_vals):
         dwi = (w & esc_code).astype(np.int64)
         # window-index reconstruction: cumsum of deltas with absolute
         # resets at escapes (value esc_code), forward-filled adjustment
@@ -395,22 +424,23 @@ def _device_relation(store: ReadStore, table: FingerprintTable,
         if len(ep):
             assert len(ep) == n_esc, (len(ep), n_esc)
             vals = esc_vals - c[ep]
-            a = np.zeros(count, np.int64)
+            a = np.zeros(n_rows, np.int64)
             a[ep] = np.concatenate([[vals[0]], np.diff(vals)])
             wi = c + np.cumsum(a)
         else:
             wi = c
         r2t = (w >> np.uint32(dbits + 4)).astype(np.int64)
-        hits(read, jj, wi, r2t >> 1, (w >> np.uint32(dbits + 2)) & 3,
-             r2t & 1, ((w >> np.uint32(dbits)) & 3) + 1)
+        return hits(read, jj, wi, r2t >> 1, (w >> np.uint32(dbits + 2)) & 3,
+                    r2t & 1, ((w >> np.uint32(dbits)) & 3) + 1)
 
     for (read, jj), *res in eng.dense_window_chunks(
             chunk, cand_cap, chunk, rbits if wire32 else None):
         (collect32 if wire32 else collect)(read, jj, *res)
 
     # one column at a time, each column's parts freed once it is joined
-    rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
-                   else np.zeros(0, dtype))
-            for name, dtype in _COLUMNS.items()}
+    with span("relation.join"):
+        rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
+                       else np.zeros(0, dtype))
+                for name, dtype in _COLUMNS.items()}
     return OverlapRelation(**rows, k=k,
                            stats=dict(eng.stats, wire_bytes=4 if wire32 else 8))

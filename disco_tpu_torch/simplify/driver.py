@@ -7,7 +7,7 @@ Phase snapshots are written with the same names the patched oracle produces
 import os
 from typing import List, Optional
 
-from ..utils.logging import clock, log
+from ..utils.logging import clock, log, span
 from .core import Alloc
 from .dataset import SimplifyDataset
 from .engine import FullGraph
@@ -35,41 +35,46 @@ def run_fullsimplify(single_files: List[str], pair_files: List[str],
     on_disk_snapshot: test hook invoked after every periodic in-loop
     graph checkpoint (reference: DISK_GRAPH_UPDATE, Config.h:53); may
     raise to simulate a mid-phase kill.
+
+    The whole call is the span `fullsimplify` (utils/logging.py), its
+    `clock` stages its children: its self time is what no stage owns, the
+    phase dumps and checkpoint writes between them.
     """
-    dataset = SimplifyDataset(single_files, pair_files, inter_pair_files)
-    dataset.store_contained_read_info(contained_files)
+    with span("fullsimplify"):
+        dataset = SimplifyDataset(single_files, pair_files, inter_pair_files)
+        dataset.store_contained_read_info(contained_files)
 
-    params = Params()
+        params = Params()
 
-    # resume state (reference: readCheckpointInfo, main.cpp:316-374)
-    phase_done, ctg_count, scf_count, start_iter = read_checkpoint_info(
-        prefix + "_SimplificationCheckpointInfo.txt", max_iters)
+        # resume state (reference: readCheckpointInfo, main.cpp:316-374)
+        phase_done, ctg_count, scf_count, start_iter = read_checkpoint_info(
+            prefix + "_SimplificationCheckpointInfo.txt", max_iters)
 
-    def checkpoint(line: str) -> None:
-        with open(prefix + "_SimplificationCheckpointInfo.txt", "a") as f:
-            f.write(line + "\n")
+        def checkpoint(line: str) -> None:
+            with open(prefix + "_SimplificationCheckpointInfo.txt", "a") as f:
+                f.write(line + "\n")
 
-    for iteration in range(start_iter, max_iters + 1):
-        dataset.clear_edge_info()
-        for i in range(1, dataset.size() + 1):
-            dataset.used[i] = False
-        if param_files:
-            params.set_parameters(param_files[min(iteration - 1,
-                                                  len(param_files) - 1)])
-        cont = _simplify_iteration(dataset, params, edge_files, prefix,
-                                   iteration, checkpoint,
-                                   single_files, pair_files,
-                                   inter_pair_files, ctg_count, scf_count,
-                                   phase_done[iteration - 1],
-                                   sim_path=sim_path,
-                                   on_disk_snapshot=on_disk_snapshot)
-        ctg_count = cont["ctg_count"]
-        scf_count = cont["scf_count"]
-        if not cont["continue"]:
-            break
-    if params.print_unused:
-        write_unused_reads(dataset, prefix)
-    return dataset
+        for iteration in range(start_iter, max_iters + 1):
+            dataset.clear_edge_info()
+            for i in range(1, dataset.size() + 1):
+                dataset.used[i] = False
+            if param_files:
+                params.set_parameters(param_files[min(iteration - 1,
+                                                      len(param_files) - 1)])
+            cont = _simplify_iteration(dataset, params, edge_files, prefix,
+                                       iteration, checkpoint,
+                                       single_files, pair_files,
+                                       inter_pair_files, ctg_count, scf_count,
+                                       phase_done[iteration - 1],
+                                       sim_path=sim_path,
+                                       on_disk_snapshot=on_disk_snapshot)
+            ctg_count = cont["ctg_count"]
+            scf_count = cont["scf_count"]
+            if not cont["continue"]:
+                break
+        if params.print_unused:
+            write_unused_reads(dataset, prefix)
+        return dataset
 
 
 # phase indices (reference checkpoint keys, main.cpp:343-362)
