@@ -45,10 +45,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    stage walls, fallback chunks and peak device memory;
 6. the device engine with its K1 check (fetch=False: K1's rows route,
    `fused_compare_dual_rows`), its count set to 0 before it: the
-   relation must equal the K2 one; then the 8-byte wire rows (`wire64`,
-   which sets of 2^23 reads and more take): the relation must equal the
-   4-byte one with no chunk re-run, its wall printed beside the 4-byte
-   run's overlapRelation;
+   relation must equal the K2 one; both must equal the native backend's
+   relation, with no chunk of the card's rows out of the relation's order
+   (`reordered_chunks` 0);
 7. verify paths, the main path of bench_verify (`python -m
    disco_tpu_torch.bench_verify`): every candidate pair of the cut set
    (bench_verify.candidate_batch, MinOverlap 30; the 4.6 Mb set until
@@ -183,9 +182,10 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    `buildg -backend native`, each in a fresh process through
    disco_tpu_torch/tools/bench_e2e.py's `run_child` (its `child_main`).
    The reads must pass 2^23 and the windows 2^31; the device run must
-   choose the 8-byte wire by itself and launch K2 (its child reports the
-   count); every file both runs write must be byte-identical.  Prints the
-   host's MemTotal, the reads, windows, wire, chunks and fallback chunks,
+   keep no chunk's rows out of the relation's order and launch K2 (its
+   child reports the count); every file both runs write must be
+   byte-identical.  Prints the host's MemTotal, the reads, windows, chunks
+   and fallback chunks,
    K2's launches, each run's wall, `clock` stages and peak host RSS
    (sampled every 10 ms, as phase 9's), the device run's peak device
    memory and the seconds the reads took to make.  The device run peaks
@@ -2871,8 +2871,8 @@ def meminfo(*names):
 def scale_phase(tmp: pathlib.Path, min_ovl: int):
     """`buildg -backend device` and `buildg -backend native` on SCALE_SET,
     each in a fresh process through tools/bench_e2e.py's `run_child`, at
-    the smoke's MinOverlap: past 2^23 reads (the 8-byte wire, chosen by the
-    read count) and 2^31 windows.  Every file both runs write must be
+    the smoke's MinOverlap: past 2^23 reads (read ids past the 4-byte
+    wire's reach) and 2^31 windows.  Every file both runs write must be
     equal.  Returns K2's launches in the device run and the directory that
     keeps the reads and the native run's files (prefix `native`) for
     phase 14."""
@@ -2901,15 +2901,15 @@ def scale_phase(tmp: pathlib.Path, min_ovl: int):
     check(dev["reads"] > 1 << 23, f"{dev['reads']} reads: not past 2^23")
     check(dev["windows"] > 1 << 31, f"{dev['windows']} windows: not past "
                                     "2^31")
-    check(rel["wire_bytes"] == 8, f"the {rel['wire_bytes']}-byte wire at "
-                                  f"{dev['reads']} reads")
+    check(rel["reordered_chunks"] == 0, f"{rel['reordered_chunks']} chunks "
+                                         "out of the relation's order")
     k2 = dev["launches"]["K2"]
     check(k2 > 0, "the device buildG at 100 Mb never launched K2")
     check(set(nat["launches"].values()) == {0},
           f"the native buildG launched {nat['launches']}")
     say(f"scale: {dev['reads']} reads (2^23 = {1 << 23}), {dev['windows']} "
-        f"windows (2^31 = {1 << 31}); the {rel['wire_bytes']}-byte wire, "
-        f"unforced; {rel['chunks']} chunks, {rel['fallback_chunks']} "
+        f"windows (2^31 = {1 << 31}); the rows kept on the card; "
+        f"{rel['chunks']} chunks, {rel['fallback_chunks']} "
         f"fallback; {dev['rows']} kept rows; K2 {k2} launches, K1 "
         f"{dev['launches']['K1']}; the reads made in {data_s:.2f} s")
     say(f"scale: every file buildG writes is byte-identical between -backend "
@@ -3047,7 +3047,8 @@ def main(argv=None) -> int:
     from disco_tpu_torch.index.table import FingerprintTable
     from disco_tpu_torch.io.readstore import ReadStore
     from disco_tpu_torch.overlap import fused_kernel as fk
-    from disco_tpu_torch.overlap.relation import _device_relation
+    from disco_tpu_torch.overlap.relation import (_device_relation,
+                                                  compute_relation)
     from disco_tpu_torch.tools import exp_k1_rows_designs as k1d
     from disco_tpu_torch.tools import exp_mxu_fetch as mf
     from disco_tpu_torch.tools.bench_e2e import StageWalls
@@ -3224,22 +3225,22 @@ def main(argv=None) -> int:
             f"launches, relation == K2 relation ({len(rel_dev)} rows) in "
             f"{t_k1:.2f} s; fallback chunks "
             f"{rel_k1.stats['fallback_chunks']} of {rel_k1.stats['chunks']}")
-        # the 8-byte wire rows, which sets of 2^23 reads and more take
+        # the rows kept on the card in relation order, against native's
         t0 = time.perf_counter()
-        rel_w64 = _device_relation(store, table, device=DEVICE, wire64=True)
-        torch.cuda.synchronize()
-        t_w64 = time.perf_counter() - t0
-        check(rel_w64.stats["fallback_chunks"] == 0,
-              "the wire64 relation re-ran chunks")
-        check_same_relation(rel_w64, rel_dev, "wire64", "device")
-        say(f"engine: wire64 (8-byte rows) relation == the 4-byte one "
-            f"({len(rel_dev)} rows) in {t_w64:.2f} s, against the 4-byte "
-            f"run's overlapRelation {dict(dev_walls)['overlapRelation']:.2f}"
-            f" s; fallback chunks 0 of {rel_w64.stats['chunks']}")
+        rel_nat = compute_relation(store, table, backend="native")
+        t_nat_rel = time.perf_counter() - t0
+        check_same_relation(rel_dev, rel_nat, "device", "native")
+        for rel in (rel_dev, rel_k1):
+            check(rel.stats["reordered_chunks"] == 0,
+                  f"{rel.stats['reordered_chunks']} chunks of the card's "
+                  "rows out of the relation's order")
+        say(f"engine: the card's relation (K2 and K1's rows route) == "
+            f"native's ({len(rel_nat)} rows, native {t_nat_rel:.2f} s), "
+            f"no chunk out of order (reordered_chunks 0 and 0)")
         say(f"engine: phase {time.perf_counter() - t_engine:.2f} s")
         if args.profile:
             profile_phase(store, table)
-        del rel_xla, rel_k1, rel_w64     # store, table, rel_dev: phase 12
+        del rel_xla, rel_k1, rel_nat     # store, table, rel_dev: phase 12
         torch.cuda.empty_cache()
 
         # ---- 7. the verify paths of bench_verify ------------------------

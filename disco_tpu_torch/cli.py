@@ -35,9 +35,8 @@ from .utils.logging import RECORDER, job
 
 # names a directory: every subcommand then runs under a profiler trace
 TRACE_ENV = "DISCO_TPU_TORCH_TRACE"
-# the trace's one marker range, and the track (a process id no real
-# process or card of the trace has, and its name) of the program's spans
-TRACE_MARK = "disco_tpu_torch.subcommand"
+# the track (a process id no real process or card of the trace has, and
+# its name) of the program's spans
 SPAN_PID, SPAN_TRACK = 1 << 30, "disco_tpu_torch spans"
 
 
@@ -428,46 +427,44 @@ def _traced(args, trace_dir: str) -> int:
     reference ships runDisco-MPI-AllineaMAP.sh to run under a profiler;
     disco_tpu's counterpart is its jax.profiler trace).  The job's program
     spans join the trace as complete events on a track of their own
-    (SPAN_PID), placed on the profiler's clock through one marker
-    range, TRACE_MARK, around the subcommand: the only range this enters
-    into the profiler."""
+    (SPAN_PID), placed on the profiler's clock through the wall clock
+    (`_add_spans`); this enters no range into the profiler."""
     import time
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
-    t_mark = time.perf_counter_ns()
+    anchor = (time.time_ns(), time.perf_counter_ns())
     try:
-        with record_function(TRACE_MARK):
-            return args.fn(args)
+        return args.fn(args)
     finally:
         # written also when the subcommand raises, as jax's trace is
         prof.stop()
         path = os.path.join(trace_dir,
                             f"{args.cmd}.{os.getpid()}.trace.json")
         prof.export_chrome_trace(path)
-        _add_spans(path, t_mark, RECORDER.spans(RECORDER.current_job()))
+        _add_spans(path, anchor, RECORDER.spans(RECORDER.current_job()))
 
 
-def _add_spans(path: str, t_mark: int, spans) -> None:
+def _add_spans(path: str, anchor, spans) -> None:
     """Write the program's `spans` (utils/logging.py) into the Chrome trace
     at `path` as complete events of the track SPAN_PID, one thread a
-    nesting depth, shifted so that `t_mark` (perf_counter ns) falls on the
-    start of the trace's TRACE_MARK range."""
+    nesting depth.  `anchor` is a (wall clock, perf_counter) pair in ns,
+    read together; the trace's times are the wall clock less its
+    `baseTimeNanoseconds`, so the pair places every span."""
     import json
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"]
-    marks = [e["ts"] for e in events
-             if e.get("name") == TRACE_MARK and e.get("ph") == "X"]
-    if not marks or not spans:
+    if not spans:
         return
-    shift = float(min(marks)) - t_mark / 1e3
+    wall_ns, perf_ns = anchor
+    shift = (wall_ns - perf_ns - trace["baseTimeNanoseconds"]) / 1e3
     depth = {}
     for s in sorted(spans, key=lambda s: (s["t0"], -s["t1"])):
         depth[s["id"]] = depth.get(s["parent"], -1) + 1

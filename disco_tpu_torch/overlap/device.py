@@ -9,8 +9,8 @@ counterpart of disco_tpu/overlap/device.py).
 - Lookup is `torch.searchsorted` over the sorted fingerprint keys, held as
   int64 with the sign bit flipped so signed order is the keys' unsigned
   order (reference: the bucket probe of HashTable.cpp:521-571).
-- The dense path (`device_overlap_dense*`, the main path) compacts the
-  candidates before the check: the bucket ranges are flattened into a
+- The dense steps (`device_overlap_rows`, the main path's, and the wire
+  steps `device_overlap_dense*`) compact the candidates before the check: the bucket ranges are flattened into a
   (cand_cap,) list by an inverse searchsorted over the per-window prefix
   sums, and only those pairs are checked.
 - The hit-cap grid (`device_overlap`, `_compact`, `_packed`) expands each
@@ -24,7 +24,9 @@ counterpart of disco_tpu/overlap/device.py).
   from packed_all on the live lanes only.
 - Verified hits are compacted to 4-byte (`device_overlap_dense32`) or
   8-byte (`device_overlap_dense`, `device_overlap_packed`) wire rows in
-  window order.
+  window order, or, on the main path (`device_overlap_rows`), to the
+  relation's own columns, which stay on the device; the windows of that
+  path's chunks are made on the device too (`window_starts_at`).
 
 All functions take and return tensors on the caller's device; no shape or
 count is read back to the host inside them."""
@@ -225,15 +227,15 @@ def dense_candidates(packed, starts, tmeta, keys, *, k, max_len,
 
 def _checked_candidates(packed, packed_all, lengths, starts, tmeta, keys, *,
                         k, max_len, cand_cap, packed_table):
-    """dense_candidates + the dual check.  Returns (cwin, r2, orient, typ,
-    edge_ok, cont_ok, n_cand)."""
+    """dense_candidates + the dual check.  Returns (cwin, cread, cj, r2,
+    orient, typ, edge_ok, cont_ok, n_cand)."""
     cwin, cread, cj, r2, orient, typ, cvalid, n_cand = dense_candidates(
         packed, starts, tmeta, keys, k=k, max_len=max_len,
         cand_cap=cand_cap)
     edge_ok, cont_ok = candidate_checks(
         packed_all, lengths, cread, cj, r2, orient, cvalid, k=k,
         packed_table=packed_table)
-    return cwin, r2, orient, typ, edge_ok, cont_ok, n_cand
+    return cwin, cread, cj, r2, orient, typ, edge_ok, cont_ok, n_cand
 
 
 class _Scatter:
@@ -265,9 +267,10 @@ def device_overlap_dense(packed, packed_all, lengths, starts, tmeta, keys,
     row 0 is wi | orient<<21 | typ<<23 | flags<<24 (flags bit0 edge_ok,
     bit1 cont_ok), row 1 is r2.  meta[1] > cand_cap or meta[0] > out_cap
     means the chunk must be re-run by an exact path."""
-    cwin, r2, orient, typ, edge_ok, cont_ok, n_cand = _checked_candidates(
-        packed, packed_all, lengths, starts, tmeta, keys, k=k,
-        max_len=max_len, cand_cap=cand_cap, packed_table=packed_table)
+    cwin, _, _, r2, orient, typ, edge_ok, cont_ok, n_cand = (
+        _checked_candidates(packed, packed_all, lengths, starts, tmeta, keys,
+                            k=k, max_len=max_len, cand_cap=cand_cap,
+                            packed_table=packed_table))
     keep = edge_ok | cont_ok
     flags = edge_ok.to(torch.int64) | (cont_ok.to(torch.int64) << 1)
     word0 = cwin | (orient << 21) | (typ << 23) | (flags << 24)
@@ -294,9 +297,10 @@ def device_overlap_dense32(packed, packed_all, lengths, starts, tmeta, keys,
     if dbits < 4:
         raise ValueError(f"rbits = {rbits}: the 4-byte row needs rbits <= 24")
     esc = (1 << dbits) - 1
-    cwin, r2, orient, typ, edge_ok, cont_ok, n_cand = _checked_candidates(
-        packed, packed_all, lengths, starts, tmeta, keys, k=k,
-        max_len=max_len, cand_cap=cand_cap, packed_table=packed_table)
+    cwin, _, _, r2, orient, typ, edge_ok, cont_ok, n_cand = (
+        _checked_candidates(packed, packed_all, lengths, starts, tmeta, keys,
+                            k=k, max_len=max_len, cand_cap=cand_cap,
+                            packed_table=packed_table))
     keep = edge_ok | cont_ok
     flags = edge_ok.to(torch.int64) | (cont_ok.to(torch.int64) << 1)
     scat = _Scatter(keep, out_cap)
@@ -316,6 +320,59 @@ def device_overlap_dense32(packed, packed_all, lengths, starts, tmeta, keys,
     esc_stream = esc_scat(wis, torch.int32)
     meta = torch.stack([n_hits, n_cand.clamp_max(_M32), is_esc.sum()])
     return _narrow32(word & _M32), esc_stream, meta
+
+
+def window_starts_at(woff, s: int, q: int, chunk: int, max_len: int):
+    """(chunk,) int64 window ids (read * max_len + j) of the global windows
+    [s, s + chunk), made on `woff`'s device from the reads' window offsets
+    (`window_offsets`, as a tensor); q is the number of windows, and ids
+    past the last window repeat it (the padding of a short final chunk)."""
+    idx = torch.arange(s, s + chunk, dtype=torch.int64,
+                       device=woff.device).clamp_max_(q - 1)
+    read = torch.searchsorted(woff, idx, right=True) - 1
+    return read * max_len + (idx - woff[read])
+
+
+def device_overlap_rows(packed, packed_all, lengths, starts, tmeta, keys,
+                        fidx, *, k, max_len, cand_cap, out_cap, n_real,
+                        packed_table=None):
+    """Dense-candidate overlap step whose kept rows are the relation's
+    columns.  The lookup, candidates and check are `device_overlap_dense`'s;
+    the verified rows of the chunk's first `n_real` windows (the rest pad a
+    short chunk) are compacted in window order into (out_cap,) columns r1,
+    j, r2 (int32), orient, typ (int8), cont_ok and edge_ok (bool).  Inside
+    a window they come in table-slot order, which is the relation's order
+    (read2's file index `fidx`, then record type) when the table's buckets
+    are sorted so.
+
+    Returns (rows, meta): rows the seven columns in that order, meta int64
+    [n_hits, n_candidates, n_disorder], n_disorder counting the rows whose
+    (fidx[r2], typ) lies below the previous row's of the same window.
+    meta[1] > cand_cap or meta[0] > out_cap means the chunk must be re-run
+    by an exact path; meta[2] > 0 that its rows need sorting."""
+    cwin, cread, cj, r2, orient, typ, edge_ok, cont_ok, n_cand = (
+        _checked_candidates(packed, packed_all, lengths, starts, tmeta, keys,
+                            k=k, max_len=max_len, cand_cap=cand_cap,
+                            packed_table=packed_table))
+    keep = (edge_ok | cont_ok) & (cwin < n_real)
+    # row i is the slot where the running count of kept slots reaches
+    # i + 1: a search over the slots, then a gather a column, so each of
+    # the nine columns reads out_cap slots where `_Scatter` would write
+    # cand_cap (rows past the count read the last slot and are never read)
+    kept = torch.cumsum(keep, 0)
+    n_hits = kept[-1]
+    slot = torch.searchsorted(
+        kept, torch.arange(1, out_cap + 1, device=kept.device)).clamp_max_(
+            cand_cap - 1)
+    rows = tuple(col[slot].to(dtype) for col, dtype in (
+        (cread, torch.int32), (cj, torch.int32), (r2, torch.int32),
+        (orient, torch.int8), (typ, torch.int8), (cont_ok, torch.bool),
+        (edge_ok, torch.bool)))
+    wi, f, t = cwin[slot], fidx[r2[slot]], rows[4]
+    live = torch.arange(1, out_cap, device=wi.device) < n_hits
+    down = (f[1:] < f[:-1]) | ((f[1:] == f[:-1]) & (t[1:] < t[:-1]))
+    n_disorder = (live & (wi[1:] == wi[:-1]) & down).sum()
+    return rows, torch.stack([n_hits, n_cand.clamp_max(_M32), n_disorder])
 
 
 def _hit_grid(packed, packed_all, lengths, starts, tmeta, keys, *, k,
@@ -435,7 +492,8 @@ class DeviceOverlapEngine:
     """Host wrapper: puts the read store and the table on `device` (default:
     the CUDA card; without one it raises) and runs the overlap steps over
     window chunks: the dense steps (`run_dense*`; over every window of the
-    store, each chunk's windows made as it goes, `dense_window_chunks`) and
+    store, each chunk's windows made as it goes, `dense_window_chunks`, or
+    made on the device, `dense_row_chunks`) and
     the hit-cap grid steps of `hit_cap` slots a window (`run`,
     `run_compact`, `run_packed` and their chunked forms).
 
@@ -524,15 +582,17 @@ class DeviceOverlapEngine:
         """Yield (n_real, *step(part)) per chunk of `starts`, the last
         chunk padded with repeats of its final window."""
         parts = (starts[s:s + chunk] for s in range(0, len(starts), chunk))
-        return self._pipelined(step, ((len(p), p, chunk) for p in parts))
+        return self._pipelined(lambda head, part: step(part),
+                               ((len(p), p, chunk) for p in parts))
 
     def _pipelined(self, step, parts):
-        """Yield (head, *step(padded part)) for each (head, part, chunk) of
-        `parts`, a part shorter than `chunk` padded with repeats of its
-        final window, through a 1-deep dispatch pipeline: chunk i+1 is
-        enqueued before chunk i is handed out.  The padding is a
+        """Yield (head, *step(head, padded part)) for each (head, part,
+        chunk) of `parts`, a part shorter than `chunk` padded with repeats
+        of its final window, through a 1-deep dispatch pipeline: chunk i+1
+        is enqueued before chunk i is handed out.  The padding is a
         `relation.windows` span, the step a `relation.step` span: the
-        starts copied to the device and the chunk's work enqueued."""
+        starts copied to the device (for a part on the host) and the
+        chunk's work enqueued."""
         pending = None
         for head, part, chunk in parts:
             if len(part) < chunk:
@@ -540,7 +600,7 @@ class DeviceOverlapEngine:
                     part = np.concatenate([part, np.full(
                         chunk - len(part), part[-1], part.dtype)])
             with span("relation.step"):
-                res = step(part)
+                res = step(head, part)
             self.stats["chunks"] += 1
             if pending is not None:
                 yield pending
@@ -570,11 +630,43 @@ class DeviceOverlapEngine:
                 yield (read, j), starts, chunk
 
         if rbits is None:
-            def step(part):
+            def step(head, part):
                 return self.run_dense(part, cand_cap, out_cap)
         else:
-            def step(part):
+            def step(head, part):
                 return self.run_dense32(part, cand_cap, out_cap, rbits)
+        return self._pipelined(step, parts())
+
+    def dense_row_chunks(self, woff: np.ndarray, chunk: int, cand_cap: int,
+                         keep):
+        """The rows step (`device_overlap_rows`, out_cap = chunk) over every
+        window of the store through `_pipelined`, each chunk's windows made
+        on the device from the reads' window offsets `woff`
+        (`window_offsets`, put on the device here with the reads' file
+        indices) in a `relation.windows` span; `keep(rows, meta)`, which
+        takes the chunk's rows, runs inside the `relation.step` span.
+        Yield ((s, e), keep's result, meta) per chunk of the global windows
+        [s, e)."""
+        q = int(woff[-1])
+        dwoff = torch.from_numpy(np.ascontiguousarray(woff, np.int64)).to(
+            self.device)
+        fidx = torch.from_numpy(np.ascontiguousarray(
+            self.store.file_index, np.int64)).to(self.device)
+        kw = self._kw(cand_cap, chunk)
+
+        def parts():
+            for s in range(0, q, chunk):
+                with span("relation.windows"):
+                    starts = window_starts_at(dwoff, s, q, chunk,
+                                              self.store.max_len)
+                yield (s, min(s + chunk, q)), starts, chunk
+
+        def step(head, starts):
+            rows, meta = device_overlap_rows(
+                self.packed, self.packed_all, self.lengths, starts,
+                self.tmeta, self.keys, fidx, n_real=head[1] - head[0], **kw)
+            return keep(rows, meta), meta
+
         return self._pipelined(step, parts())
 
     def run_dense32_chunked(self, starts: np.ndarray, chunk: int = 1 << 20,

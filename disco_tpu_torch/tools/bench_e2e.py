@@ -16,9 +16,10 @@ resident set (sampled every 10 ms, `RssPeak`) and at its start, its
 `clock` stages, its launches of K1, K1's rows route (`K1_rows`) and K2,
 its peak device memory, and, when it made the one-pass relation or the
 distributed one (`buildg -n N [-rma]`), the reads, the windows, the
-relation's rows and its stats (chunks, fallback chunks; the wire row's
-bytes, or the distributed relation's hit_cap), with the distributed
-relation's chunk plan and host seconds by stage (`profile`).  The device
+relation's rows and its stats (chunks, fallback chunks; the chunks
+found out of order on the card, or the distributed relation's hit_cap),
+with the distributed relation's chunk plan and host seconds by stage
+(`profile`).  The device
 backend needs a CUDA card: without one the tool exits non-zero before it
 makes any data.  `run_child` runs one such child, of `buildg` or of
 `assemble`; chip_smoke.py drives its scale phases through it, and

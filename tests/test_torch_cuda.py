@@ -4,8 +4,9 @@ K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
 tools/exp_mxu_fetch.py: T3 and its unpipelined control) against their plain
-versions, on a CUDA card; the hit-cap grid engine (overlap/device.py) on
-the card against the CPU; and the distributed buildG (dist/) with its
+versions, on a CUDA card; the hit-cap grid engine (overlap/device.py) and
+the main path's relation on the card against the CPU (and the relation
+against native's); and the distributed buildG (dist/) with its
 shards on the card, against CPU shards and the goldens.
 Tolerance: exact — the outputs are booleans and integers.
 
@@ -1139,6 +1140,58 @@ def test_grid_engine_on_the_card_matches_cpu(cuda_device, hit_cap):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the main path's relation (overlap/relation.py::_device_relation) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("cand_factor", [4, 1 / 64], ids=["kept", "rerun"])
+def test_device_relation_on_the_card(cuda_device, cand_factor):
+    """The relation of 2,500 reads of 250 bp from a 50 kb genome (552,500
+    windows, one chunk of 2^20) on the card equals the plain versions' run
+    on the CPU and native's; with cand_factor 1/64 the chunk is re-run on
+    the host (K1's column kernel).  The rows step, the window ops and the
+    rows' copy to their segment never wait for the host; the card raises
+    nothing."""
+    from disco_tpu_torch.index.table import FingerprintTable
+    from disco_tpu_torch.overlap import device as dv
+    from disco_tpu_torch.overlap import relation as rel
+
+    rng = np.random.default_rng(11)
+    genome = "".join(rng.choice(list("ACGT"), 50_000))
+    store = ReadStore.from_sequences(
+        [genome[s:s + READ_LEN]
+         for s in rng.integers(0, 50_000 - READ_LEN, 2_500)])
+    table = FingerprintTable.build(store, 29)
+    got = rel._device_relation(store, table, chunk=1 << 20,
+                               cand_factor=cand_factor, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got.stats["chunks"] == 1
+    assert got.stats["fallback_chunks"] == (cand_factor < 1)
+    assert got.stats["reordered_chunks"] == 0
+    for want in (rel._device_relation(store, table, device="cpu"),
+                 rel.compute_relation(store, table, backend="native")):
+        assert len(got) == len(want) > 0
+        for f in ("r1", "j", "r2", "orient", "typ", "cont_ok", "edge_ok"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+
+    eng = dv.DeviceOverlapEngine(store, table, device=cuda_device)
+    woff = dv.window_offsets(store.lengths, table.k)
+    chunk = 1 << 20
+    segs = rel._RowSegments(16 * chunk, chunk, 4 * chunk, cuda_device)
+    chunks = eng.dense_row_chunks(woff, chunk, 4 * chunk, segs.put)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (_, seg, meta), = chunks
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    meta = meta.cpu().numpy()
+    torch.cuda.synchronize()
+    assert meta[0] == len(got) and meta[2] == 0 and seg == 0
 
 
 # ---------------------------------------------------------------------------

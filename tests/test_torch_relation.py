@@ -5,7 +5,11 @@ backend, and the native backend.  Tolerance: exact — every column equal.
 
 `mini` never exceeds the device caps (at most 16 candidates in any 32
 windows), so the cap-overflow cases run on a synthetic high-coverage set
-(300 reads of 100 bp from a 600 bp genome) where most chunks overflow."""
+(300 reads of 100 bp from a 600 bp genome) where most chunks overflow, and
+the sparse cases on a set of 300 reads of 100 bp from a 200 kb genome,
+where hits lie up to some 1,500 windows apart and most chunks keep no row."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,7 @@ from disco_tpu.io.readstore import ReadStore
 from disco_tpu.overlap.relation import compute_relation as ref_relation
 from disco_tpu_torch.convert import state_from_reference
 from disco_tpu_torch.overlap import relation as port
+from disco_tpu_torch.utils.logging import RECORDER
 from test_torch_native import private_native  # noqa: F401
 
 # the tests run in several worker processes at once: one intra-op thread
@@ -45,6 +50,17 @@ def dense():
     return state_from_reference(store, table), want
 
 
+@pytest.fixture(scope="module")
+def sparse():
+    rng = np.random.default_rng(5)
+    genome = "".join(rng.choice(list("ACGT"), 200_000))
+    store = ReadStore.from_sequences(
+        [genome[s:s + 100] for s in rng.integers(0, 199_900, 300)])
+    table = FingerprintTable.build(store, 29)
+    want = ref_relation(store, table, backend="native")
+    return state_from_reference(store, table), want
+
+
 def _assert_equal(got, want):
     assert len(got) == len(want)
     for f in FIELDS:
@@ -60,23 +76,26 @@ DEVICE_CASES = {
     "cand_cap_overflow": dict(chunk=64, cand_factor=1),
     "hit_cap_overflow": dict(chunk=64, cand_factor=4),
     "small_chunks": dict(chunk=256),
-    "wire32_escapes": dict(chunk=1 << 14, rbits=24),
-    "wire64": dict(chunk=1 << 14, wire64=True),
+    # hits up to 1,474 windows apart: chunks with no row between chunks
+    # with rows, in one segment and over many
+    "sparse_hits": dict(chunk=1 << 14),
+    "sparse_small_chunks": dict(chunk=100),
     "k1_route": dict(chunk=1 << 14, fetch=False),
     # the relation streamed by chunk: chunks that do not divide the window
-    # count, and re-runs spread over several chunks on both wires and with
-    # escapes
+    # count, a short last chunk padded on the device, and re-runs spread
+    # over several chunks of odd sizes, between chunks kept on the device
     "odd_chunks": dict(chunk=1000),
-    "odd_chunks_wire64": dict(chunk=1000, wire64=True),
-    "wire64_cand_overflow": dict(chunk=100, cand_factor=1, wire64=True),
-    "rbits24_cand_overflow": dict(chunk=100, cand_factor=1, rbits=24),
+    "odd_chunks_prime": dict(chunk=997),
+    "odd_chunks_cand_overflow": dict(chunk=97, cand_factor=1),
+    "odd_chunks_hit_overflow": dict(chunk=100, cand_factor=4),
 }
 
 
 @pytest.mark.parametrize("case", list(DEVICE_CASES))
-def test_device_relation_matches_native(mini, dense, case):
+def test_device_relation_matches_native(mini, dense, sparse, case):
     overflow = case.endswith("_overflow")
-    (store, table), want = dense if overflow else mini
+    (store, table), want = (dense if overflow else
+                            sparse if case.startswith("sparse") else mini)
     got = port._device_relation(store, table, device="cpu",
                                 **DEVICE_CASES[case])
     _assert_equal(got, want)
@@ -86,6 +105,7 @@ def test_device_relation_matches_native(mini, dense, case):
         assert 0 < fallback < got.stats["chunks"]
     else:
         assert fallback == 0
+    assert got.stats["reordered_chunks"] == 0
 
 
 def test_fractional_cand_factor_forces_reruns_on_mini(mini):
@@ -125,3 +145,77 @@ def test_device_backends_need_a_card(mini, monkeypatch):
             port.compute_relation(store, table, backend=backend)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         port._device_relation(store, table)
+
+
+def _counters(fn):
+    """fn() run as one job of the recorder: (its result, its counters)."""
+    with RECORDER.job():
+        got = fn()
+    return got, RECORDER.jobs()[-1]["counters"]
+
+
+def test_rows_counter_is_the_relation_when_nothing_reruns(mini):
+    """relation.rows counts the rows kept on the device: all of the
+    relation when no chunk is re-run, fewer when some are;
+    relation.reordered reads 0 on a table as built."""
+    (store, table), want = mini
+    for kw, rerun in ((dict(chunk=1000), False),
+                      (dict(chunk=1 << 12, cand_factor=1 / 6), True)):
+        got, c = _counters(lambda: port._device_relation(
+            store, table, device="cpu", **kw))
+        _assert_equal(got, want)
+        assert (got.stats["fallback_chunks"] > 0) == rerun
+        assert c["relation.reordered"] == 0
+        if rerun:
+            assert 0 < c["relation.rows"] < len(got)
+        else:
+            assert c["relation.rows"] == len(got)
+
+
+def test_bucket_out_of_order_is_sorted_on_the_host():
+    """A table with two neighbours of one bucket swapped, so that the
+    bucket is no longer in (file index, type) order, makes the one chunk
+    whose windows keep both keep rows out of the relation's order: the
+    device flags that chunk (relation.reordered 1), the host sorts it, and
+    the relation still equals native's on the table as built.  The reads
+    (400 of 100 bp, 2x over 20 kb) lie in the genome's order, so that the
+    windows that keep two given entries lie near each other."""
+    rng = np.random.default_rng(6)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    ref_store = ReadStore.from_sequences(
+        [genome[s:s + 100] for s in np.sort(rng.integers(0, 19_900, 400))])
+    ref_table = FingerprintTable.build(ref_store, 29)
+    want = ref_relation(ref_store, ref_table, backend="native")
+    store, table = state_from_reference(ref_store, ref_table)
+    chunk = 1 << 12
+    woff = np.concatenate([[0], np.cumsum(store.lengths.astype(np.int64)
+                                          - table.k)])
+    w = woff[want.r1] + want.j
+    code = port.window_codes_at(store, want.r1.astype(np.int64),
+                                want.j.astype(np.int64), table.k)
+    # each row's table entry: its bucket's first entry plus its rank there
+    lo, hi = table.lookup_ranges(code)
+    pos = np.full(len(w), -1)
+    for i in range(len(w)):
+        b = np.flatnonzero((table.read[lo[i]:hi[i]] == want.r2[i])
+                           & (table.orient[lo[i]:hi[i]] == want.orient[i])
+                           & (table.typ[lo[i]:hi[i]] == want.typ[i]))
+        pos[i] = lo[i] + b[0]
+    # neighbouring entries kept together, by the chunks of their windows
+    both = np.flatnonzero((w[1:] == w[:-1]) & (pos[1:] == pos[:-1] + 1))
+    chunks = {}
+    for i in both:
+        chunks.setdefault(pos[i], set()).add(w[i] // chunk)
+    p = min(q for q, c in chunks.items() if len(c) == 1)
+    flip = np.arange(len(table.keys))
+    flip[[p, p + 1]] = p + 1, p
+    permuted = dataclasses.replace(table, read=table.read[flip],
+                                   orient=table.orient[flip],
+                                   typ=table.typ[flip])
+    got, c = _counters(lambda: port._device_relation(
+        store, permuted, device="cpu", chunk=chunk))
+    assert c["relation.reordered"] == 1
+    assert got.stats["reordered_chunks"] == 1
+    assert got.stats["fallback_chunks"] == 0
+    assert c["relation.rows"] == len(got)
+    _assert_equal(got, want)

@@ -1,7 +1,9 @@
 """The device relation at the size its users run (disco_tpu_torch.overlap):
 the engine's chunk windows at global window offsets past 2^31, the
-relation order against np.lexsort, the 8-byte wire past 2^23 reads, and the
-streamed relation's host memory, against disco_tpu and closed formulas.
+relation order against np.lexsort, the 8-byte wire and the relation's r2
+column past 2^23 reads, the host's work (codes, windows and sorts for
+re-run chunks only) and the streamed relation's host memory, against
+disco_tpu and closed formulas.
 Tolerance: exact — every output is an integer or boolean array."""
 import tracemalloc
 
@@ -71,6 +73,24 @@ def test_chunk_windows_past_2_31(where):
     np.testing.assert_array_equal(j, g % n_win)
     starts = read * LEN_BIG + j
     assert (np.diff(starts) > 0).all()
+
+
+@pytest.mark.parametrize("where", ["below", "across", "last"])
+def test_window_starts_at_past_2_31(where):
+    """The window ids the rows step makes on the device
+    (`window_starts_at`), over the same 10M reads, equal read * 250 + j of
+    `chunk_windows`, and past the last window repeat it."""
+    woff = port_device.window_offsets(np.full(N_BIG, LEN_BIG, np.int32), K)
+    q, chunk = int(woff[-1]), 1 << 20
+    s = {"below": (1 << 31) - chunk, "across": (1 << 31) - 777,
+         "last": q - 1000}[where]
+    e = min(s + chunk, q)
+    got = port_device.window_starts_at(torch.from_numpy(woff), s, q, chunk,
+                                       LEN_BIG).numpy()
+    read, j = port_device.chunk_windows(woff, s, e)
+    assert got.dtype == np.int64 and len(got) == chunk
+    np.testing.assert_array_equal(got[:e - s], read * LEN_BIG + j)
+    assert (got[e - s:] == got[e - s - 1]).all()
 
 
 @pytest.mark.parametrize("chunk", [1, 97, 4096])
@@ -153,7 +173,7 @@ def test_relation_order_is_lexsort(seed):
         np.arange(len(in_order)))
 
 
-# ---- the 8-byte wire ------------------------------------------------------
+# ---- the 8-byte wire and the r2 column -----------------------------------
 def test_wire64_decodes_read_ids_past_2_23():
     """Synthetic 8-byte wire rows (row 0 wi | orient << 21 | typ << 23 |
     flags << 24, row 1 r2) with read ids up to 2^28 - 1 decode exactly."""
@@ -172,38 +192,34 @@ def test_wire64_decodes_read_ids_past_2_23():
         np.testing.assert_array_equal(got.astype(np.int64), want)
 
 
-class _Store:
-    """A store of `n_reads` reads that the wire choice reads."""
-    def __init__(self, n_reads):
-        self.n_reads = n_reads
-        self.file_index = np.zeros(0, np.int64)
-        self.max_len = LEN_BIG
+@pytest.mark.parametrize("top", [(1 << 23) - 1, 1 << 23, N_BIG,
+                                 (1 << 28) - 1])
+def test_read_ids_past_2_23_reach_the_r2_column_exact(mini, monkeypatch,
+                                                      top):
+    """Read ids at 2^23 - 1, 2^23 and beyond (the 10M-read set, and the
+    engine's limit of 2^28 reads) reach the relation's r2 column exact: the
+    rows step's r2 column on mini, shifted so that its largest id is `top`,
+    comes back unchanged through the segments kept on the device and the
+    pull, in chunks of 1000 windows (many segments)."""
+    store, table = mini
+    want = ref_relation(store, table, backend="native")
+    st, tb = state_from_reference(store, table)
+    shift = top - int(want.r2.max())
+    real = port_device.DeviceOverlapEngine.dense_row_chunks
 
+    def shifted(self, woff, chunk, cand_cap, keep):
+        def keep_shifted(rows, meta):
+            return keep((*rows[:2], rows[2] + shift, *rows[3:]), meta)
+        return real(self, woff, chunk, cand_cap, keep_shifted)
 
-@pytest.mark.parametrize("n_reads,wire64,want", [
-    ((1 << 23) - 1, False, 4), (1 << 23, False, 8), (N_BIG, False, 8),
-    (1000, True, 8)])
-def test_wire_chosen_by_read_count(monkeypatch, n_reads, wire64, want):
-    """From 2^23 reads on the 4-byte row cannot hold the read id: the
-    8-byte wire is chosen with no forcing; `wire64` forces it below."""
-    seen = {}
-
-    class Engine:
-        def __init__(self, store, table, device=None, fetch=True):
-            self.stats = {"chunks": 0, "fallback_chunks": 0}
-
-        def dense_window_chunks(self, chunk, cand_cap, out_cap, rbits):
-            seen["rbits"] = rbits
-            return iter(())
-
-    class Table:
-        k = K
-
-    monkeypatch.setattr(port_device, "DeviceOverlapEngine", Engine)
-    rel = port._device_relation(_Store(n_reads), Table(), device="cpu",
-                                wire64=wire64)
-    assert rel.stats["wire_bytes"] == want and len(rel) == 0
-    assert (seen["rbits"] is None) == (want == 8)
+    monkeypatch.setattr(port_device.DeviceOverlapEngine, "dense_row_chunks",
+                        shifted)
+    got = port._device_relation(st, tb, device="cpu", chunk=1000)
+    assert got.r2.dtype == np.int32 and int(got.r2.max()) == top
+    np.testing.assert_array_equal(got.r2.astype(np.int64) - shift, want.r2)
+    for f in FIELDS:
+        if f != "r2":
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
 # ---- the host's work: codes for re-run windows only, no per-window array --
@@ -218,25 +234,37 @@ def test_window_codes_at_equals_window_codes(mini):
     np.testing.assert_array_equal(got, qcode[pick])
 
 
-def test_codes_only_for_rerun_chunks(dense, monkeypatch):
+def test_codes_only_for_rerun_chunks(mini, dense, monkeypatch):
     """With re-runs forced over several chunks, the host makes window codes
-    for those chunks' windows alone, a chunk at a time, and never for the
-    whole set; the relation equals disco_tpu's."""
-    store, table = dense
-    want = ref_relation(store, table, backend="native")
-    st, tb = state_from_reference(store, table)
-    sizes = []
-    real = port.window_codes_at
+    and the windows' (read, j) for those chunks' windows alone, a chunk at
+    a time, and never for the whole set; with none re-run, on mini, it
+    makes neither; the relations equal disco_tpu's."""
+    sizes, windows = [], []
+    real, real_windows = port.window_codes_at, port_device.chunk_windows
 
     def codes_at(store, qread, qj, k):
         sizes.append(len(qread))
         return real(store, qread, qj, k)
+
+    def chunk_windows(woff, s, e):
+        windows.append(e - s)
+        return real_windows(woff, s, e)
 
     def whole_set(*a, **kw):
         raise AssertionError("window_codes over the whole set")
 
     monkeypatch.setattr(port, "window_codes", whole_set)
     monkeypatch.setattr(port, "window_codes_at", codes_at)
+    monkeypatch.setattr(port_device, "chunk_windows", chunk_windows)
+    store, table = mini
+    got = port._device_relation(*state_from_reference(store, table),
+                                device="cpu", chunk=1000)
+    _assert_equal(got, ref_relation(store, table, backend="native"))
+    assert got.stats["fallback_chunks"] == 0 and sizes == windows == []
+
+    store, table = dense
+    want = ref_relation(store, table, backend="native")
+    st, tb = state_from_reference(store, table)
     chunk = 100
     got = port._device_relation(st, tb, device="cpu", chunk=chunk,
                                 cand_factor=1)
@@ -244,7 +272,32 @@ def test_codes_only_for_rerun_chunks(dense, monkeypatch):
     fb = got.stats["fallback_chunks"]
     n_win = int(store.lengths.sum()) - store.n_reads * table.k
     assert 1 < fb < got.stats["chunks"] and len(sizes) == fb
+    assert windows == sizes
     assert all(0 < s <= chunk for s in sizes) and sum(sizes) < n_win
+
+
+def test_relation_order_only_for_rerun_or_flagged_chunks(mini, dense,
+                                                         monkeypatch):
+    """The host sorts rows (`relation_order`) only of a chunk it re-ran or
+    that the device found out of order: never on mini, where none is
+    either, and once a re-run chunk on the dense set with re-runs forced."""
+    calls = []
+    real = port.relation_order
+
+    def relation_order(w, fidx2, typ):
+        calls.append(len(w))
+        return real(w, fidx2, typ)
+
+    monkeypatch.setattr(port, "relation_order", relation_order)
+    for (store, table), kw in ((mini, dict(chunk=1000)),
+                               (dense, dict(chunk=100, cand_factor=1))):
+        calls.clear()
+        got = port._device_relation(*state_from_reference(store, table),
+                                    device="cpu", **kw)
+        _assert_equal(got, ref_relation(store, table, backend="native"))
+        assert got.stats["reordered_chunks"] == 0
+        assert len(calls) == got.stats["fallback_chunks"]
+    assert calls
 
 
 def test_no_host_array_a_window():

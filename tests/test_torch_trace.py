@@ -21,11 +21,12 @@ from disco_tpu_torch.utils import logging as tlog
 from disco_tpu_torch.utils.logging import RECORDER, Recorder
 
 MINI, MICRO = GOLDEN / "mini", GOLDEN / "micro"
-# the relation's spans: every chunk's, then once a relation; fallback only
-# on a chunk over its caps
-CHUNK_SPANS = ("relation.windows", "relation.step", "relation.wait",
-               "relation.pull", "relation.decode", "relation.order")
-ONCE_SPANS = ("relation.upload", "relation.join")
+# the relation's spans: every chunk's; a chunk's re-run on the host or
+# sorted there (fallback only on a chunk over its caps); then once a
+# relation
+CHUNK_SPANS = ("relation.windows", "relation.step", "relation.wait")
+SORTED_SPANS = ("relation.decode", "relation.order")
+ONCE_SPANS = ("relation.upload", "relation.pull", "relation.join")
 
 
 def _on_cpu(mp):
@@ -175,16 +176,20 @@ def test_recorder_memory_is_bounded():
 
 
 def test_device_relation_records_its_chunk_spans(mini_device):
-    """Every relation span under overlapRelation, in the job; their seconds
-    within 10% of overlapRelation's; the outputs unchanged."""
+    """Every relation span under overlapRelation, in the job; the chunk
+    spans once a chunk, none of a sort (nothing re-run or out of order on
+    mini), the others once; their seconds within 10% of overlapRelation's;
+    the outputs unchanged."""
     job, spans, out = mini_device
     by_id = {s["id"]: s for s in spans}
     (rel,) = [s for s in spans if s["name"] == "overlapRelation"]
     names = [s["name"] for s in spans]
     chunks = names.count("relation.step")
     assert chunks >= 3
-    for name in CHUNK_SPANS[1:]:
+    for name in CHUNK_SPANS:
         assert names.count(name) == chunks, name
+    for name in SORTED_SPANS + ("relation.fallback",):
+        assert names.count(name) == 0, name
     for name in ONCE_SPANS:
         assert names.count(name) == 1, name
     for s in spans:
@@ -202,12 +207,16 @@ def test_device_relation_records_its_chunk_spans(mini_device):
         assert ((out / f"g{suffix}").read_bytes()
                 == (MINI / f"mini{suffix}").read_bytes()), suffix
     assert job["counters"]["relation.candidates"] > 0
+    assert job["counters"]["relation.reordered"] == 0
+    assert job["counters"]["relation.rows"] > 0
 
 
 def test_slots_count_every_chunk_and_fallback_is_a_span(tmp_path):
     """relation.slots = stats["chunks"] x cand_cap, relation.candidates the
     chunks' candidates; a chunk over its caps is a relation.fallback span,
-    its rows ordered after it."""
+    its rows decoded and ordered after it (a relation.decode and a
+    relation.order span each), and a chunk kept on the device is
+    neither."""
     store = ReadStore.from_files([str(MINI / "reads.fasta")], [], 30,
                                  id_map_path=str(tmp_path / "ids.txt"))
     table = FingerprintTable.build(store, 29)
@@ -222,8 +231,8 @@ def test_slots_count_every_chunk_and_fallback_is_a_span(tmp_path):
         assert (job["counters"]["relation.slots"]
                 == rel.stats["chunks"] * cand_cap)
         assert names.count("relation.wait") == rel.stats["chunks"]
-        assert names.count("relation.fallback") == rel.stats[
-            "fallback_chunks"]
+        for name in ("relation.fallback",) + SORTED_SPANS:
+            assert names.count(name) == rel.stats["fallback_chunks"], name
         assert (rel.stats["fallback_chunks"] > 0) == over
     native = relation.compute_relation(store, table, backend="native")
     assert np.array_equal(rel.r2, native.r2)
@@ -245,24 +254,28 @@ def test_trace_wrap_places_spans_on_the_profilers_clock(mini_traced,
                                                         mini_device):
     """The exported trace holds the job's spans on a track of their own,
     and each relation.step span holds the aten::searchsorted operators its
-    step enqueued (the lookup and the candidates' windows), every one of
-    them inside a step; no profiler event carries a span's name; the
-    outputs equal those of the run without the wrap."""
+    step enqueued (the lookup and the candidates' windows), each
+    relation.windows span the one of its windows' reads, every one of them
+    inside a step or a windows span; no profiler event carries a span's
+    name; the outputs equal those of the run without the wrap."""
     events, spans, out = mini_traced
     mine = [e for e in events if e.get("pid") == cli.SPAN_PID
             and e.get("ph") == "X"]
     # the job's own span closes after the export
     assert sorted(e["name"] for e in mine) == sorted(
         s["name"] for s in spans if s["name"] != "job")
-    steps = [(e["ts"], e["ts"] + e["dur"]) for e in mine
-             if e["name"] == "relation.step"]
+    steps, windows = ([(e["ts"], e["ts"] + e["dur"]) for e in mine
+                       if e["name"] == name]
+                      for name in ("relation.step", "relation.windows"))
     ops = [(e["ts"], e["ts"] + e["dur"]) for e in events
            if e.get("name") == "aten::searchsorted" and e.get("ph") == "X"]
-    assert len(steps) >= 3 and ops
+    assert len(steps) >= 3 and len(windows) == len(steps) and ops
     for a, b in steps:
         assert sum(a <= lo and hi <= b for lo, hi in ops) >= 3
+    for a, b in windows:
+        assert sum(a <= lo and hi <= b for lo, hi in ops) == 1
     for lo, hi in ops:
-        assert any(a <= lo and hi <= b for a, b in steps), (lo, hi)
+        assert any(a <= lo and hi <= b for a, b in steps + windows), (lo, hi)
     others = {e.get("name") for e in events if e.get("pid") != cli.SPAN_PID}
     assert not others & {s["name"] for s in spans}
     for suffix in ("_0_parGraph.txt", "_0_containedReads.txt"):
