@@ -41,16 +41,21 @@ from ..overlap.device import chunk_windows, window_offsets
 from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
                                 relation_order, window_codes_at)
 from ..overlap.verify import make_packed_all
-from ..utils.logging import RECORDER, clock, span
+from ..utils.logging import RECORDER, clock, count, span
 from .mesh import Mesh, gather_host, make_mesh
 from .overlap_shard import DistMemOverlapEngine, ShardedOverlapEngine, compact
 
-# the host's stages of the chunk loop, each the span "relation.<stage>"
-# (utils/logging.py), whose seconds `_relation` adds up: the marked mask,
-# the windows' inputs staged for the devices, the step and compaction
-# enqueued, the count read and rows pulled (the wait for the devices
-# included), the rows decoded and ordered, the containment replay, and the
-# exact re-runs
+# the host's stages of the chunk loop, each the span "dist.<stage>"
+# (utils/logging.py; the single-device loop's are "relation.<stage>"),
+# whose seconds `_relation` adds up: the marked mask, the windows' inputs
+# staged for the devices, the step and compaction enqueued, the count read
+# and rows pulled (the wait for the devices included), the rows decoded and
+# ordered, the containment replay, and the exact re-runs.  Outside the
+# loop, the spans dist.build (the chunk plan and the engine, its table
+# shards and payload put on the devices) and dist.join (the columns
+# joined).  The counters: dist.chunks, dist.fallback_chunks, dist.rows
+# (rows `_pull` brought to the host), and the exchanges' bytes
+# (overlap_shard.py)
 HOST_STAGES = ("marked", "windows", "step", "pull", "order", "replay",
                "fallback")
 
@@ -107,11 +112,12 @@ def _pull(mesh: Mesh, rows, metas):
     host, (R, 4) int32 in shard, window, slot order, or None when a shard
     overflowed a cap.  One count read for every shard (across processes
     one `all_gather`), then each shard's rows padded to the largest count,
-    so that every rank holds the same rows."""
+    so that every rank holds the same rows, counted as dist.rows."""
     meta = gather_host(mesh, metas).reshape(mesh.size, 2)
     if meta[:, 1].sum() != 0:
         return None
     top = int(meta[:, 0].max())
+    count("dist.rows", int(meta[:, 0].sum()))
     if top == 0:
         return np.zeros((0, 4), np.int32)
     got = gather_host(mesh, [r[:top] for r in rows]).reshape(mesh.size, top,
@@ -128,14 +134,20 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
     host's seconds by stage (`host_s`, HOST_STAGES)."""
     n_dev = mesh.size
     k = table.k
-    woff = window_offsets(store.lengths, k)
-    q = int(woff[-1])
-    hit_cap, chunk, route_cap = chunk_plan(table, q, n_dev, route_cap,
-                                           budget, hit_cap)
-    engine = DistMemOverlapEngine if dist_mem else ShardedOverlapEngine
-    eng = engine.build(store, table, mesh, hit_cap=hit_cap,
-                       route_cap=route_cap, prune_marked=prune)
-    windows, run = eng.make_chunk_step(store, chunk)
+    before = RECORDER.totals()
+
+    def stage(name):
+        return span("dist." + name)
+
+    with stage("build"):
+        woff = window_offsets(store.lengths, k)
+        q = int(woff[-1])
+        hit_cap, chunk, route_cap = chunk_plan(table, q, n_dev, route_cap,
+                                               budget, hit_cap)
+        engine = DistMemOverlapEngine if dist_mem else ShardedOverlapEngine
+        eng = engine.build(store, table, mesh, hit_cap=hit_cap,
+                           route_cap=route_cap, prune_marked=prune)
+        windows, run = eng.make_chunk_step(store, chunk)
 
     n = store.n_reads
     superread = (superread_init.copy() if superread_init is not None
@@ -150,36 +162,27 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
     stats.setdefault("chunks", 0)
     profile = profile if profile is not None else {}
     profile.update(hit_cap=hit_cap, chunk=chunk, route_cap=route_cap)
-    before = RECORDER.totals()
-
-    def stage(name):
-        return span("relation." + name)
 
     def emit(r1, j, r2, orient, typ, edge_ok, cont_ok):
-        """Append one chunk's rows in relation order; with `prune`, advance
-        the order-exact containment replay over its cont rows."""
-        with stage("order"):
-            order = relation_order(r1.astype(np.int64) * store.max_len + j,
-                                   fidx[r2], typ)
-            for name, col in (("r1", r1), ("j", j), ("r2", r2),
-                              ("orient", orient), ("typ", typ),
-                              ("edge_ok", edge_ok), ("cont_ok", cont_ok)):
-                parts[name].append(col[order].astype(_COLUMNS[name],
-                                                     copy=False))
-        if prune:
-            with stage("replay"):
-                cc = parts["cont_ok"][-1]
-                replay.containment_step(
-                    superread, cont_lines, store, k, parts["r1"][-1][cc],
-                    parts["j"][-1][cc], parts["r2"][-1][cc],
-                    parts["orient"][-1][cc])
+        """Append one chunk's rows in relation order."""
+        order = relation_order(r1.astype(np.int64) * store.max_len + j,
+                               fidx[r2], typ)
+        for name, col in (("r1", r1), ("j", j), ("r2", r2),
+                          ("orient", orient), ("typ", typ),
+                          ("edge_ok", edge_ok), ("cont_ok", cont_ok)):
+            parts[name].append(col[order].astype(_COLUMNS[name],
+                                                 copy=False))
 
     def take(s, e, got):
+        """Put chunk [s, e)'s pulled rows (None: re-run it) in relation
+        order; with `prune`, advance the order-exact containment replay
+        over its cont rows."""
         if got is None:
             # a cap was exceeded in this chunk: recompute it exactly, codes
             # made for its windows alone
             with stage("fallback"):
                 stats["fallback_chunks"] += 1
+                count("dist.fallback_chunks")
                 if "packed_all" not in fallback:
                     fallback["packed_all"] = make_packed_all(
                         store.packed, store.packed_rc, mesh.devices[0])
@@ -188,12 +191,21 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
                     store, table, read, j, window_codes_at(store, read, j, k),
                     device=mesh.devices[0],
                     packed_all=fallback["packed_all"])
-            emit(*(rows[name] for name in ("r1", "j", "r2", "orient", "typ",
-                                           "edge_ok", "cont_ok")))
+            with stage("order"):
+                emit(*(rows[name] for name in ("r1", "j", "r2", "orient",
+                                               "typ", "edge_ok", "cont_ok")))
         else:
-            r1, j, r2, code = got.T
-            emit(r1, j, r2, code & 3, (code >> 2) & 1, (code & 8) != 0,
-                 (code & 16) != 0)
+            with stage("order"):
+                r1, j, r2, code = got.T
+                emit(r1, j, r2, code & 3, (code >> 2) & 1, (code & 8) != 0,
+                     (code & 16) != 0)
+        if prune:
+            with stage("replay"):
+                cc = parts["cont_ok"][-1]
+                replay.containment_step(
+                    superread, cont_lines, store, k, parts["r1"][-1][cc],
+                    parts["j"][-1][cc], parts["r2"][-1][cc],
+                    parts["orient"][-1][cc])
 
     # 1-deep pipeline: chunk i's rows are pulled (the wait for the devices)
     # before chunk i+1 is enqueued, and taken on the host while the devices
@@ -215,6 +227,7 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
             compacted = compact(inputs[0], inputs[1], out)
             del out
         stats["chunks"] += 1
+        count("dist.chunks")
         if pending is not None:
             take(*pending[:2], got)
         pending = (s, e, compacted)
@@ -224,14 +237,15 @@ def _relation(store: ReadStore, table: FingerprintTable, mesh: Mesh, *,
         take(*pending[:2], got)
 
     # one column at a time, each column's parts freed once it is joined
-    rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
-                   else np.zeros(0, dtype))
-            for name, dtype in _COLUMNS.items()}
-    rel = OverlapRelation(**rows, k=k, stats=dict(stats))
+    with stage("join"):
+        rows = {name: (np.concatenate(parts.pop(name)) if parts[name]
+                       else np.zeros(0, dtype))
+                for name, dtype in _COLUMNS.items()}
+        rel = OverlapRelation(**rows, k=k, stats=dict(stats))
     after = RECORDER.totals()
     secs = profile.setdefault("host_s", dict.fromkeys(HOST_STAGES, 0.0))
     for name in HOST_STAGES:
-        key = "relation." + name
+        key = "dist." + name
         secs[name] += (after.get(key, (0, 0.0))[1]
                        - before.get(key, (0, 0.0))[1])
     return rel, superread, cont_lines

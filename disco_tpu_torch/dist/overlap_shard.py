@@ -54,6 +54,7 @@ from ..overlap.device import (_M32, _SIGN64, _Scatter, _window_codes,
                               candidate_checks, candidate_checks_rows,
                               flip_keys, window_offsets)
 from ..overlap.verify import as_words, make_packed_all
+from ..utils.logging import count
 from .mesh import Mesh, all_gather, all_to_all, gather_host
 
 PAD_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -132,6 +133,15 @@ def compact(qread, qj, out):
         metas.append(torch.stack([keep.sum(), out[5][d].reshape(()).to(
             torch.int64)]))
     return rows, metas
+
+
+def _exchange(mesh: Mesh, xs, counter: str):
+    """`all_to_all` of the local shards' tensors `xs`, their bytes as sent
+    (each whole tensor, its padded slots included) added to the recorder's
+    counter `counter`: from their shapes, so nothing is read from a
+    device."""
+    count(counter, sum(x.numel() * x.element_size() for x in xs))
+    return all_to_all(mesh, xs)
 
 
 def _bin_by_owner(owner, n_bins, cap):
@@ -289,13 +299,16 @@ class ShardedOverlapEngine:
         unions = all_gather(mesh, marked)
         # 2. route query codes to their owner shards
         routed = [self._route(j, c, o) for j, c, o in zip(qj, qcode, qowner)]
-        codes_in = all_to_all(mesh, [r[2] for r in routed])
-        valid_in = all_to_all(mesh, [r[3] for r in routed])
+        codes_in = _exchange(mesh, [r[2] for r in routed],
+                             "dist.route_bytes")
+        valid_in = _exchange(mesh, [r[3] for r in routed],
+                             "dist.route_bytes")
         # 3. local table lookup
         hits = [self._lookup(c, v, sh)
                 for c, v, sh in zip(codes_in, valid_in, shards)]
         # 4. answers ride back to the querying shard
-        back = [all_to_all(mesh, [h[i] for h in hits]) for i in range(4)]
+        back = [_exchange(mesh, [h[i] for h in hits], "dist.route_bytes")
+                for i in range(4)]
         out = []
         for d in range(len(routed)):
             slots, overflow = routed[d][0], routed[d][1] + hits[d][4]
@@ -456,14 +469,14 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
             req = torch.where(slots >= 0,
                               ids[slots.clamp_min(0).to(torch.int64)], 0)
             routed.append((slots, overflow, req.to(torch.int32)))
-        req_in = all_to_all(mesh, [r[2] for r in routed])
+        req_in = _exchange(mesh, [r[2] for r in routed], "dist.fetch_bytes")
         # owner-local gather
         rows = []
         for req, pay in zip(req_in, payload):
             local = ((req % n_reads) // n).clamp(0, block - 1)
             rows.append(pay[(local + block * (req >= n_reads)).to(
                 torch.int64)])
-        rows_back = all_to_all(mesh, rows)
+        rows_back = _exchange(mesh, rows, "dist.fetch_bytes")
         wp = payload[0].shape[-1]
         # scatter the replies to request order
         return [(_scatter_rows(slots, ids.shape[0], back.reshape(-1, wp)),
