@@ -7,7 +7,8 @@ The package mirrors ``disco_tpu``'s module names.  The host modules (ingest,
 QC, the fingerprint table, the replays, all of ``simplify``) are numpy
 copies of their counterparts, kept exact by the parity tests in
 ``tests/test_torch_*.py``; the C++ host sources are copies of the JAX
-package's, in ``native/src``.  The
+package's, in ``native/src``, but for the traversal replay the port runs,
+its own ``native/port/replay.cpp``, held to the copy's output.  The
 device half of buildG (window codes, table lookup, candidate compaction,
 the dual window check, hit compaction) runs on torch tensors, and its two
 checks are CUDA C++ kernels for sm_90a (``csrc/dual_compare.cu``).

@@ -18,7 +18,7 @@ import numpy as np
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
 from ..overlap.relation import BACKEND_ENV, compute_relation, default_backend
-from ..utils.logging import clock
+from ..utils.logging import clock, span
 from . import replay
 
 
@@ -153,11 +153,14 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
         if two_pass:
             from .. import native
             n = store.n_reads
-            contained = (superread[1:n + 1] != 0).astype(np.uint8)
-            starts, ej, er2, eo = native.overlap_relation_mode2_grouped(
-                store.packed, store.packed_rc, store.lengths, table.keys,
-                table.read, table.orient, table.typ, table.k, contained)
-            del contained
+            # the relation's edge pass yields the edge-eligible rows grouped
+            with span("replay.groups"):
+                contained = (superread[1:n + 1] != 0).astype(np.uint8)
+                starts, ej, er2, eo = native.overlap_relation_mode2_grouped(
+                    store.packed, store.packed_rc, store.lengths,
+                    table.keys, table.read, table.orient, table.typ,
+                    table.k, contained)
+                del contained
             par_blob, start_blob, _ = replay.graph_replay_from_groups(
                 store, table.k, starts, ej, er2, eo,
                 superread, write_par_graph_size,

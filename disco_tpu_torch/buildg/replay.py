@@ -1,7 +1,8 @@
 """Parity replay of the reference's graph-construction traversal (host
 copy of disco_tpu/buildg/replay.py).  The traversal runs in
-native/src/replay.cpp; `build_graph_replay` is its single-threaded Python
-oracle, which the tests hold the native replay to.
+native/port/replay.cpp, laid out for the host's caches;
+native/src/replay.cpp (the JAX package's) and `build_graph_replay`, its
+single-threaded Python oracle, are what the tests hold it to.
 
 The heavy work — verifying every candidate overlap — is done order-free
 (disco_tpu_torch.overlap). What remains order-DEPENDENT in the reference is
@@ -28,6 +29,7 @@ import numpy as np
 from ..io.readstore import ReadStore
 from ..native import stdsort_permutation
 from ..overlap.relation import OverlapRelation
+from ..utils.logging import count, span
 
 # hit orientation -> edge orientation (reference: OverlapGraph.cpp:660-666)
 _EDGE_ORIENT = (3, 0, 2, 1)
@@ -175,17 +177,25 @@ def graph_replay_from_groups(store: ReadStore, k: int, starts, ej, er2, eo,
                              premarked: "np.ndarray | None" = None):
     """Run the native traversal replay over pre-grouped edge-eligible hits
     (group of 1-based read r = [starts[r-1], starts[r]); er2 1-based).
-    Returns (par_blob, start_blob, chunk_ends)."""
+    Returns (par_blob, start_blob, chunk_ends).  The walk is the span
+    replay.traverse, the text replay.format; the counters replay.rows,
+    .inserts, .edges and .lines count their work."""
     from .. import native
     n = store.n_reads
-    all_marked = (superread[:n + 1] != 0).astype(np.uint8)
-    if premarked is not None:
-        all_marked |= premarked
-    all_marked[0] = 1
-    return native.graph_replay(n, k, write_par_graph_size, starts,
-                               ej, er2, eo, store.lengths,
-                               store.file_index, all_marked,
-                               start_read=start_read)
+    with span("replay.traverse"):
+        all_marked = (superread[:n + 1] != 0).astype(np.uint8)
+        if premarked is not None:
+            all_marked |= premarked
+        all_marked[0] = 1
+        walk = native.replay_walk(n, k, write_par_graph_size, starts, ej,
+                                  er2, eo, store.lengths, all_marked,
+                                  start_read=start_read)
+        count("replay.rows", int(starts[n]))
+        count("replay.inserts", walk.inserts)
+        count("replay.edges", walk.edges)
+        count("replay.lines", walk.lines)
+    with span("replay.format"):
+        return walk.text(store.file_index, store.lengths)
 
 
 def build_graph_replay_native(rel: OverlapRelation, store: ReadStore,
@@ -200,9 +210,10 @@ def build_graph_replay_native(rel: OverlapRelation, store: ReadStore,
     kill offsets."""
     from .. import native
     n = store.n_reads
-    contained = (superread[:n + 1] != 0).astype(np.uint8)
-    starts, ej, er2, eo = native.edge_hit_groups(
-        rel.r1, rel.j, rel.r2, rel.orient, rel.edge_ok, contained, n)
+    with span("replay.groups"):
+        contained = (superread[:n + 1] != 0).astype(np.uint8)
+        starts, ej, er2, eo = native.edge_hit_groups(
+            rel.r1, rel.j, rel.r2, rel.orient, rel.edge_ok, contained, n)
     return graph_replay_from_groups(store, rel.k, starts, ej, er2, eo,
                                     superread, write_par_graph_size,
                                     start_read=start_read,

@@ -9,7 +9,9 @@ ctypes, both built into BUILD_DIR (listed in .gitignore):
 - the C++ host sources in ``native/src/*.cpp``, compiled by ``g++``.  They
   are byte-identical copies of their counterparts in the JAX package
   (``tests/test_torch_native_sources.py`` holds them so); the port builds
-  and reads nothing outside its own directory.
+  and reads nothing outside its own directory;
+- the port's own C++ host sources in ``native/port/*.cpp`` (no twin in the
+  JAX package; the tests hold them to ``native/src``'s), also by ``g++``.
 
 A library is rebuilt when it is missing or older than one of its sources
 or of the headers they include (`deps`).  Each build writes a private temporary file and renames it into place, so
@@ -27,6 +29,7 @@ from .utils.logging import span
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 NATIVE_SRC = PKG_DIR / "native" / "src"
+PORT_SRC = PKG_DIR / "native" / "port"
 BUILD_DIR = PKG_DIR / "_build"
 
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -70,9 +73,19 @@ def load_cuda(name: str, deps=()) -> ctypes.CDLL:
         return ctypes.CDLL(str(so))
 
 
-def load_native(name: str, opt: str = "-O2", extra=()) -> ctypes.CDLL:
-    """Compile native/src/<name>.cpp with g++ (once) and load it."""
-    so = _build(BUILD_DIR / f"_{name}.so", [NATIVE_SRC / f"{name}.cpp"],
+def _load_cpp(src: pathlib.Path, out: str, opt: str, extra) -> ctypes.CDLL:
+    so = _build(BUILD_DIR / out, [src],
                 ["g++", opt, "-shared", "-fPIC", "-std=c++17", *extra])
     with span("kernels.load"):
         return ctypes.CDLL(str(so))
+
+
+def load_native(name: str, opt: str = "-O2", extra=()) -> ctypes.CDLL:
+    """Compile native/src/<name>.cpp with g++ (once) and load it."""
+    return _load_cpp(NATIVE_SRC / f"{name}.cpp", f"_{name}.so", opt, extra)
+
+
+def load_port_native(name: str, opt: str = "-O3", extra=()) -> ctypes.CDLL:
+    """Compile native/port/<name>.cpp with g++ (once) and load it."""
+    return _load_cpp(PORT_SRC / f"{name}.cpp", f"_port_{name}.so", opt,
+                     extra)

@@ -7,14 +7,19 @@ Bound are read QC and packing, the record scanner (whole file, lengths
 only, and in windows), the native overlap relation (all three protocols),
 the traversal replay, and simplify's host code: libstdc++'s std::sort
 permutation, parsimplify, the min-cost flow solver and the read-to-edge
-back index.  Semantics are those of disco_tpu/native/__init__.py."""
+back index.  Semantics are those of disco_tpu/native/__init__.py.
+
+The port's own host code, native/port/*.cpp, has no twin in the JAX
+package: native/port/replay.cpp is the traversal the port runs
+(`replay_walk`, `ReplayWalk.text`); native/src/replay.cpp's
+`graph_replay` stays bound as its parity oracle."""
 import ctypes
 import os
 import threading
 
 import numpy as np
 
-from ..kernels import load_native
+from ..kernels import load_native, load_port_native
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -92,18 +97,38 @@ _SPECS = {
     }),
 }
 
+# the port's own sources, native/port/<name>.cpp
+_PORT_SPECS = {
+    "replay": (("-O3", ("-fopenmp",)), {
+        "replay_walk": ([_i64, _i64, _i64, _p64, _p16, _p32, _pi8, _p32,
+                         _pu8, _i64, _p64], _vp),
+        "replay_format": ([_vp, _p64, _p32], _i64),
+        "replay_output": ([_vp, ctypes.POINTER(_vp), ctypes.POINTER(_vp),
+                           _p64, ctypes.POINTER(_p64), _p64], None),
+        "replay_free": ([_vp], None),
+    }),
+}
 
-def _lib(name: str) -> ctypes.CDLL:
+
+def _load(key, name: str, specs, loader) -> ctypes.CDLL:
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            (opt, extra), fns = _SPECS[name]
-            lib = load_native(name, opt=opt, extra=extra)
+            (opt, extra), fns = specs[name]
+            lib = loader(name, opt=opt, extra=extra)
             for fn, (argtypes, restype) in fns.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-            _LIBS[name] = lib
+            _LIBS[key] = lib
     return lib
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    return _load(name, name, _SPECS, load_native)
+
+
+def _port_lib(name: str) -> ctypes.CDLL:
+    return _load(("port", name), name, _PORT_SPECS, load_port_native)
 
 
 def build_all() -> None:
@@ -158,7 +183,8 @@ def stdsort_permutation(keys, descending: bool = False) -> np.ndarray:
 # ---------------------------------------------------------------------------
 def graph_replay(n: int, k: int, wpgs: int, starts, ej, er2, eo, lens, fidx,
                  all_marked, start_read: int = 1):
-    """Run the sequential buildG traversal replay from `start_read`.
+    """Run the sequential buildG traversal replay from `start_read`
+    (native/src/replay.cpp: the parity oracle of `replay_walk`).
     Returns (par_blob, start_blob, chunk_ends): the _parGraph.txt content,
     the _startRead.txt content (one line per chunk), and the parGraph byte
     offset after each chunk flush (the valid kill/restart points)."""
@@ -191,6 +217,72 @@ def graph_replay(n: int, k: int, wpgs: int, starts, ej, er2, eo, lens, fidx,
         lib.replay_free(ptr)
         lib.replay_free(sptr)
         lib.replay_free(cptr)
+
+
+class ReplayWalk:
+    """A finished walk of the port's traversal (native/port/replay.cpp):
+    `inserts` (calls to insert_all_edges), `edges` (edge pairs made) and
+    `lines` (parGraph lines) count its work; `text` prints its lines."""
+
+    def __init__(self, lib, handle, n, counts):
+        self._lib, self._h, self._n = lib, handle, n
+        self.inserts, self.edges, self.lines = (int(c) for c in counts)
+
+    def text(self, fidx, lens):
+        """(par_blob, start_blob, chunk_ends), as `graph_replay` returns
+        them; frees the walk."""
+        if self._h is None:
+            raise RuntimeError("the walk's text was taken")
+        fidx = np.ascontiguousarray(fidx, np.int64)
+        lens = np.ascontiguousarray(lens, np.int32)
+        if len(fidx) < self._n or len(lens) < self._n:
+            raise ValueError("ReplayWalk.text: fidx and lens need n reads")
+        lib, h = self._lib, self._h
+        try:
+            size = lib.replay_format(h, _ptr(fidx, _p64), _ptr(lens, _p32))
+            tptr, sptr, cptr = _vp(), _vp(), _p64()
+            ssize, nch = ctypes.c_int64(0), ctypes.c_int64(0)
+            lib.replay_output(h, ctypes.byref(tptr), ctypes.byref(sptr),
+                              ctypes.byref(ssize), ctypes.byref(cptr),
+                              ctypes.byref(nch))
+            par = ctypes.string_at(tptr, size)
+            start_blob = ctypes.string_at(sptr, ssize.value)
+            chunk_ends = np.ctypeslib.as_array(
+                cptr, shape=(nch.value,)).copy()
+            return par, start_blob, chunk_ends
+        finally:
+            self._h = None
+            lib.replay_free(h)
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.replay_free(self._h)
+            self._h = None
+
+
+def replay_walk(n: int, k: int, wpgs: int, starts, ej, er2, eo, lens,
+                all_marked, start_read: int = 1) -> ReplayWalk:
+    """The port's traversal: `graph_replay`'s walk, from `start_read`,
+    marking `all_marked` ((n+1,) uint8, C-contiguous) in place.  Returns
+    the walk; its `text` makes graph_replay's outputs."""
+    if not (isinstance(all_marked, np.ndarray) and all_marked.dtype == np.uint8
+            and all_marked.flags.c_contiguous):
+        raise TypeError("all_marked must be a C-contiguous uint8 array")
+    starts = np.ascontiguousarray(starts, np.int64)
+    ej = np.ascontiguousarray(ej, np.int16)
+    er2 = np.ascontiguousarray(er2, np.int32)
+    eo = np.ascontiguousarray(eo, np.int8)
+    lens = np.ascontiguousarray(lens, np.int32)
+    if (len(starts) != n + 1 or len(all_marked) != n + 1 or len(lens) < n
+            or not len(ej) == len(er2) == len(eo) == starts[n]):
+        raise ValueError("replay_walk: the groups do not fit n reads")
+    lib = _port_lib("replay")
+    counts = np.zeros(3, np.int64)
+    h = lib.replay_walk(n, k, wpgs, _ptr(starts, _p64), _ptr(ej, _p16),
+                        _ptr(er2, _p32), _ptr(eo, _pi8), _ptr(lens, _p32),
+                        _ptr(all_marked, _pu8), start_read,
+                        _ptr(counts, _p64))
+    return ReplayWalk(lib, h, n, counts)
 
 
 def edge_hit_groups(r1, j, r2, orient, edge_ok, contained, n: int):

@@ -13,7 +13,8 @@ import torch
 
 from conftest import GOLDEN
 
-from disco_tpu_torch import cli
+from disco_tpu_torch import cli, native
+from disco_tpu_torch.buildg import replay
 from disco_tpu_torch.index.table import FingerprintTable
 from disco_tpu_torch.io.readstore import ReadStore
 from disco_tpu_torch.overlap import relation
@@ -27,6 +28,8 @@ MINI, MICRO = GOLDEN / "mini", GOLDEN / "micro"
 CHUNK_SPANS = ("relation.windows", "relation.step", "relation.wait")
 SORTED_SPANS = ("relation.decode", "relation.order")
 ONCE_SPANS = ("relation.upload", "relation.pull", "relation.join")
+# the replay's steps, once a job each
+REPLAY_SPANS = ("replay.groups", "replay.traverse", "replay.format")
 
 
 def _on_cpu(mp):
@@ -209,6 +212,41 @@ def test_device_relation_records_its_chunk_spans(mini_device):
     assert job["counters"]["relation.candidates"] > 0
     assert job["counters"]["relation.reordered"] == 0
     assert job["counters"]["relation.rows"] > 0
+
+
+def test_replay_records_its_spans_and_counters(mini_device):
+    """replay.groups, .traverse and .format once each, children of
+    buildOverlapGraphFromHashTable, their seconds within 10% of its; the
+    counters those of a direct walk over the same rows (1000 reads a
+    chunk, the CLI's default)."""
+    job, spans, out = mini_device
+    (graph,) = [s for s in spans
+                if s["name"] == "buildOverlapGraphFromHashTable"]
+    for name in REPLAY_SPANS:
+        (sp,) = [s for s in spans if s["name"] == name]
+        assert sp["parent"] == graph["id"], name
+    parts = sum(job["totals"][name][1] for name in REPLAY_SPANS)
+    whole = job["totals"]["buildOverlapGraphFromHashTable"][1]
+    assert abs(parts - whole) <= 0.1 * whole
+    store = ReadStore.from_files([str(MINI / "reads.fasta")], [], 30)
+    table = FingerprintTable.build(store, 29)
+    rel = relation.compute_relation(store, table, backend="native")
+    superread, _ = replay.containment_replay(rel, store)
+    contained = (superread != 0).astype(np.uint8)
+    starts, ej, er2, eo = native.edge_hit_groups(
+        rel.r1, rel.j, rel.r2, rel.orient, rel.edge_ok, contained,
+        store.n_reads)
+    contained[0] = 1
+    walk = native.replay_walk(store.n_reads, rel.k, 1000, starts, ej, er2,
+                              eo, store.lengths, contained)
+    counters = job["counters"]
+    assert counters["replay.rows"] == len(er2) > 0
+    assert (counters["replay.inserts"], counters["replay.edges"],
+            counters["replay.lines"]) == (walk.inserts, walk.edges,
+                                          walk.lines)
+    par, _, _ = walk.text(store.file_index, store.lengths)
+    assert par == (out / "g_0_parGraph.txt").read_bytes()
+    assert walk.lines == par.count(b"\n")
 
 
 def test_slots_count_every_chunk_and_fallback_is_a_span(tmp_path):
