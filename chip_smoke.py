@@ -22,7 +22,8 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
 4. kernels: both dual-check kernels (and, past the row, K1's rows route)
    against their plain PyTorch versions
    on the card, exactly: on real candidate chunks at the main path's shape
-   (2^20 windows, cand_cap 4M pairs, Wp = 17), on an edge-case batch
+   (2^20 windows, made by `window_offsets` and `chunk_windows`, cand_cap
+   4M pairs, Wp = 17), on an edge-case batch
    (n = 0, every bit phase, windows ending at the read's last base, P not
    a multiple of 1024) and on windows running up to one word past the row,
    which the kernels read as zeros; kernel and plain times by CUDA events,
@@ -160,21 +161,9 @@ Phases; any that fails ends the run with a non-zero exit and no result line:
    device` on `mini` with stand-in BBTools scripts (copy in= to out=),
    every file equal to the same command with `-backend native`, K2 above
    0;
-12. the hit-cap grid engine (overlap/device.py's `run*` steps), on phase
-   3's set with disco_tpu's defaults (hit_cap 16, chunks of 2^21
-   windows): with the K1 (rows route and column kernel) and K2 counts set
-   to 0, `run_packed_chunked` over every window, each chunk's hits decoded
-   on the card (at most out_cap a chunk); the rows route above 0, the
-   column kernel and K2 0; the hits of the windows that do not overflow
-   must equal phase 5's relation there.  Prints the wall, the overflowing
-   windows and the peak device memory.  Then `run`, `run_compact` and
-   `run_packed` must agree on the first three chunks; `device_overlap` on
-   2^16 windows must equal the same call on the CPU in every field; K1's
-   rows route on the first chunk's grid (P = 2^21 x 16, its inputs
-   captured) equal to its plain version and timed back to back and held,
-   against the bound and floors of `rows_work`; `buildg -backend device`
-   on `mini` under DISCO_TPU_TORCH_TRACE (the CLI's trace wrap) with files
-   equal to the untraced run's and a Chrome trace that names K2's kernel;
+12. the CLI's trace wrap: `buildg -backend device` on `mini` untraced
+   and under DISCO_TPU_TORCH_TRACE, with files equal to each other's and
+   the goldens, and one Chrome trace that names K2's kernel;
 13. scale, the main path at the size its users run: on the JAX package's
    verified set (100 Mb genome, 25x, 250 bp pairs, 500 bp insert, seed 99:
    10,000,000 reads, 2,210,000,000 windows at MinOverlap 30), made once
@@ -238,10 +227,8 @@ ranks, and `multiproc_rank_launches` by run and rank; K2 with
 13's device run; K1 with `dist_scale_launches`, its rows route's launches
 in phase 14; K1 with its rows
 route's `dist_rows_*` times, bound, sector floor, live lanes and launches
-at the dist shape, and the column route and column kernels there; K1
-with phase 12's `grid_launches` and its rows route's `grid_rows_*` times,
-bound and floors at the grid's shape), the card's name and power limit,
-and last {"ok": true, "device": {...}}."""
+at the dist shape, and the column route and column kernels there), the
+card's name and power limit, and last {"ok": true, "device": {...}}."""
 import argparse
 import concurrent.futures
 import contextlib
@@ -642,11 +629,13 @@ def kernel_phase(store, table):
     import numpy as np
     import torch
     from disco_tpu_torch.overlap import fused_kernel as fk
-    from disco_tpu_torch.overlap.device import DeviceOverlapEngine
+    from disco_tpu_torch.overlap.device import (DeviceOverlapEngine,
+                                                chunk_windows, window_offsets)
 
     eng = DeviceOverlapEngine(store, table, device=DEVICE)
-    starts = eng.window_starts()
-    n_chunks = -(-len(starts) // CHUNK)
+    woff = window_offsets(store.lengths, eng.k)
+    q = int(woff[-1])
+    n_chunks = -(-q // CHUNK)
     picks = sorted({int(c) for c in np.linspace(0, max(n_chunks - 2, 0), 5)})
     times = {k: [] for k in ("K1", "K1_plain", "K1_held", "K2", "K2_plain",
                              "K2_held")}
@@ -676,8 +665,9 @@ def kernel_phase(store, table):
         return want
 
     for c in picks:
+        read, j = chunk_windows(woff, c * CHUNK, min((c + 1) * CHUNK, q))
         rows1, a, b, geo, n_cand = chunk_inputs(
-            eng, starts[c * CHUNK:(c + 1) * CHUNK])
+            eng, read * store.max_len + j)
         want = run_both(rows1, a, b, geo, timed=True)
         for name, bd in zip(("K1", "K2"), dual_bounds(
                 rows1, geo, eng.packed_all.shape[1])):
@@ -2613,207 +2603,16 @@ def multiproc_phase(tmp: pathlib.Path, cut: pathlib.Path, min_ovl: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the hit-cap grid engine and the CLI's trace wrap
+# phase 12: the CLI's trace wrap
 # ---------------------------------------------------------------------------
-GRID_HIT_CAP = 16      # disco_tpu's DeviceOverlapEngine default
-GRID_CHUNK = 1 << 21   # disco_tpu's run_packed_chunked default
-GRID_CHECKED = 3       # chunks on which run, run_compact and run_packed meet
-GRID_CPU = 1 << 16     # windows of the chunk held against the CPU
-
-
-def hit_keys(gw, r2, orient, typ, flags, n_reads):
-    """One int64 a hit: its global window, r2, orient, typ and flags."""
-    return ((gw * n_reads + r2) << 5) | (orient << 3) | (typ << 2) | flags
-
-
-def grid_chunks(eng, starts, n_reads):
-    """run_packed_chunked over `starts`, each chunk's hits decoded on the
-    card into hit_keys (the pad windows' dropped).  Returns (keys, the
-    overflowing windows' global indices, the hits a chunk)."""
-    import numpy as np
-    import torch
-    keys, over, counts = [], [], []
-    s = 0
-    for n_real, data, meta in eng.run_packed_chunked(starts,
-                                                     chunk=GRID_CHUNK):
-        meta = meta.cpu().numpy().view(np.uint32)      # count, overflow bits
-        count = int(meta[0])
-        check(count <= data.shape[1], f"the chunk at window {s} holds "
-                                      f"{count} hits, out_cap {data.shape[1]}")
-        counts.append(count)
-        bits = np.unpackbits(meta[1:].view(np.uint8), bitorder="little")
-        over.append(s + np.flatnonzero(bits[:n_real]))
-        w0, r2 = data[:, :count].long()
-        wi = w0 & 0x1FFFFF
-        sel = wi < n_real
-        w0 = w0[sel]
-        keys.append(hit_keys(s + wi[sel], r2[sel], (w0 >> 21) & 3,
-                             (w0 >> 23) & 1, (w0 >> 24) & 3, n_reads))
-        s += n_real
-    return torch.cat(keys), np.concatenate(over), counts
-
-
-def grid_agree(eng, part):
-    """run, run_compact and run_packed on one chunk: the grid's verified
-    slots of the windows that do not overflow, in (window, slot) order, are
-    the compact rows, and the packed rows and overflow bits are the compact
-    ones.  Returns the chunk's hits and overflowing windows."""
-    import torch
-    q = len(part)
-    grid = eng.run(part)
-    comp = eng.run_compact(part, GRID_CHUNK)
-    data, meta = eng.run_packed(part, GRID_CHUNK)
-    count = int(comp.count)
-    live = (grid.edge_ok | grid.cont_ok) & ~comp.over[:, None]
-    wi, _ = torch.nonzero(live, as_tuple=True)
-    flags = grid.edge_ok[live].int() | (grid.cont_ok[live].int() << 1)
-    check(len(wi) == count and count <= GRID_CHUNK,
-          f"the grid holds {len(wi)} verified slots, compact {count}")
-    for name, g, c in (("wi", wi.int(), comp.wi), ("r2", grid.r2[live],
-                       comp.r2), ("orient", grid.orient[live], comp.orient),
-                       ("typ", grid.typ[live], comp.typ),
-                       ("flags", flags, comp.flags)):
-        check(torch.equal(g, c[:count]), f"the grid's {name} differ from "
-                                         "the compact rows")
-    word0 = comp.wi | (comp.orient << 21) | (comp.typ << 23) | (
-        comp.flags << 24)
-    check(torch.equal(data, torch.stack([word0, comp.r2])),
-          "the packed rows differ from the compact rows")
-    words = meta.long() & 0xFFFFFFFF
-    bits = (words[1:, None] >> torch.arange(32, device=words.device)) & 1
-    check(int(words[0]) == count
-          and torch.equal(bits.reshape(-1)[:q].bool(), comp.over)
-          and int(grid.overflow) == int(comp.over.sum()),
-          "the packed count or overflow bits differ from the compact ones")
-    return count, int(grid.overflow)
-
-
-def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
-    """The hit-cap grid engine (overlap/device.py's run* steps, K1's rows
-    route) on the full set, against phase 5's relation; a chunk against the
-    CPU; K1's rows route at the grid's shape; the CLI's trace wrap.
-    Returns K1's grid_* entries."""
-    import numpy as np
-    import torch
+def trace_phase(tmp: pathlib.Path):
+    """`buildg -backend device` on mini untraced and under
+    DISCO_TPU_TORCH_TRACE (the CLI's trace wrap): files equal to each
+    other's and the goldens, and one Chrome trace that names K2's
+    kernel."""
     from disco_tpu_torch.cli import TRACE_ENV
     from disco_tpu_torch.cli import main as cli_main
-    from disco_tpu_torch.overlap import device as dv
     from disco_tpu_torch.overlap import fused_kernel as fk
-    n_reads = store.n_reads
-    eng = dv.DeviceOverlapEngine(store, table, hit_cap=GRID_HIT_CAP,
-                                 device=DEVICE)
-    starts = eng.window_starts()
-    check(len(starts) * n_reads < 1 << 58, "hit keys past 63 bits")
-
-    # ---- every window through run_packed_chunked, the counts set to 0 ----
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fk.fused_compare_dual_rows.launches = 0
-    fk.fused_compare_dual.launches = 0
-    fk.fused_compare_dual_fetch.launches = 0
-    t0 = time.perf_counter()
-    keys, over, counts = grid_chunks(eng, starts, n_reads)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    grid_launches = fk.fused_compare_dual_rows.launches
-    check(grid_launches > 0, "the grid engine never launched K1's rows route")
-    check(fk.fused_compare_dual.launches == 0
-          and fk.fused_compare_dual_fetch.launches == 0,
-          "the grid engine launched K1's column kernel or K2")
-    say(f"grid: run_packed_chunked over {len(starts)} windows (hit_cap "
-        f"{GRID_HIT_CAP}, {len(counts)} chunks of {GRID_CHUNK}): {wall:.2f} s"
-        f" with the decode on the card; {len(over)} windows overflow; "
-        f"{sum(counts)} hits, at most {max(counts)} a chunk; K1's rows route "
-        f"{grid_launches} launches, its column kernel and K2 0; peak device "
-        f"memory {peak / 2**20:.1f} MiB")
-    woff = np.concatenate([[0], np.cumsum(store.lengths.astype(np.int64)
-                                          - table.k)])
-    gw = woff[rel_dev.r1] + rel_dev.j
-    keep = ~np.isin(gw, over)
-    want = hit_keys(
-        gw[keep], rel_dev.r2[keep].astype(np.int64),
-        rel_dev.orient[keep].astype(np.int64),
-        rel_dev.typ[keep].astype(np.int64),
-        rel_dev.edge_ok[keep].astype(np.int64)
-        | (rel_dev.cont_ok[keep].astype(np.int64) << 1), n_reads)
-    want = torch.from_numpy(want).to(DEVICE)
-    check(torch.equal(keys.sort().values, want.sort().values),
-          "the grid engine's hits differ from phase 5's relation on the "
-          "windows that do not overflow")
-    say(f"grid: its {len(keys)} hits == phase 5's relation on the "
-        f"{len(starts) - len(over)} windows that do not overflow")
-    del keys, want, gw, keep
-
-    # ---- run, run_compact and run_packed agree; K1's inputs captured ------
-    real, seen = dv.fused_compare_dual_rows, []
-
-    def capture(*args):
-        if not seen:
-            seen.append(args)
-        return real(*args)
-
-    dv.fused_compare_dual_rows = capture
-    try:
-        got = [grid_agree(eng, starts[c * GRID_CHUNK:(c + 1) * GRID_CHUNK])
-               for c in range(GRID_CHECKED)]
-    finally:
-        dv.fused_compare_dual_rows = real
-    say(f"grid: run, run_compact and run_packed agree on the first "
-        f"{GRID_CHECKED} chunks: (hits, overflowing windows) {got}")
-
-    # ---- one chunk on the card against the same call on the CPU ----------
-    at = max(0, int(over[0]) - GRID_CPU // 2) if len(over) else \
-        len(starts) // 2
-    part = starts[at:at + GRID_CPU]
-    cpu = dv.DeviceOverlapEngine(store, table, hit_cap=GRID_HIT_CAP,
-                                 device="cpu")
-    t0 = time.perf_counter()
-    want = cpu.run(part)
-    t_cpu = time.perf_counter() - t0
-    got = eng.run(part)
-    for f in want._fields:
-        check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
-              f"device_overlap's {f} on the card differs from the CPU's")
-    say(f"grid: device_overlap on {GRID_CPU} windows from window {at}: the "
-        f"card == the CPU in every field ({int(want.overflow)} overflowing, "
-        f"{int(want.n_hits)} slots; the CPU {t_cpu:.2f} s)")
-    del cpu, got, want
-
-    # ---- K1's rows route at the grid's shape -----------------------------
-    t1, r1, t2, r2, *geo = seen[0]
-    del seen
-    route = lambda: fk.fused_compare_dual_rows(t1, r1, t2, r2, *geo)  # noqa
-    plain = lambda: fk.fused_compare_dual_rows_plain(        # noqa: E731
-        t1, r1, t2, r2, *geo)
-    err = max_abs_err(route(), plain())
-    check(err == 0, "K1's rows route at the grid's shape disagrees with "
-                    "its plain version")
-    ms, held = rows_turns({"route": route})["route"]
-    plain_ms = cuda_ms(plain, 1)
-    work = rows_work(t1, r1, t2, r2, tuple(geo))
-    bd = rows_bounds(work)["route"]
-    p = len(r1)
-    say(f"grid: K1's rows route at P = {p} (Wp {t1.shape[1]}), "
-        f"{work['live_lanes']} live lanes ({work['live_lanes'] / p:.4f}): "
-        f"{ms:.4f} ms ({held:.4f} held), plain {plain_ms:.4f} ms, == plain; "
-        f"{bd['bytes']} B, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}),"
-        f" row-layout floor {bd['sector_floor_ms']:.4f} ms, whole-sector "
-        f"floor {bd['whole_sector_floor_ms']:.4f} ms")
-    del t1, r1, t2, r2, geo, eng
-    torch.cuda.empty_cache()
-    out = {"grid_launches": grid_launches, "grid_P": p,
-           "grid_rows_live_P": work["live_lanes"], "grid_rows_ms": ms,
-           "grid_rows_held_ms": held, "grid_rows_plain_ms": plain_ms,
-           "grid_rows_max_abs_err": err, "grid_rows_bytes": bd["bytes"],
-           "grid_rows_bound_ms": bd["bound_ms"],
-           "grid_rows_bound_by": bd["bound_by"],
-           "grid_rows_sector_floor_ms": bd["sector_floor_ms"],
-           "grid_rows_whole_sector_floor_ms": bd["whole_sector_floor_ms"],
-           "grid_wall_s": wall, "grid_overflow_windows": len(over),
-           "grid_peak_bytes": peak}
-
-    # ---- the CLI's trace wrap: buildg -backend device on mini -------------
     gdir = ROOT / "tests" / "golden" / "mini"
     trace = tmp / "trace"
     cwd = os.getcwd()
@@ -2842,11 +2641,10 @@ def grid_phase(tmp: pathlib.Path, store, table, rel_dev):
     events = json.loads(text)["traceEvents"]
     check("dual_compare_fetch_kernel" in text,
           "the trace does not name K2's kernel")
-    say(f"grid: buildg -backend device on mini under {TRACE_ENV}: files == "
-        f"the untraced run's and the goldens; {traces[0].name} "
+    say(f"trace: buildg -backend device on mini under {TRACE_ENV}: files "
+        f"== the untraced run's and the goldens; {traces[0].name} "
         f"({len(text)} B, {len(events)} events) names "
         "dual_compare_fetch_kernel")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3273,13 +3071,13 @@ def main(argv=None) -> int:
         mp_launches, ecc_k2 = multiproc_phase(tmp, cut, min_ovl)
         say(f"multiproc: phase {time.perf_counter() - t0:.2f} s")
 
-        # ---- 12. the hit-cap grid engine -----------------------------------
+        # ---- 12. the CLI's trace wrap ------------------------------------
+        del store, table, rel_dev
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        g_k1 = grid_phase(tmp, store, table, rel_dev)
-        del store, table, rel_dev
-        say(f"grid: phase {time.perf_counter() - t0:.2f} s")
+        trace_phase(tmp)
+        say(f"trace: phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 13. the main path at the size its users run -------------------
         gc.collect()
@@ -3330,7 +3128,7 @@ def main(argv=None) -> int:
              assemble_launches=a_launches["K1"],
              dist_launches=d_launches["K1"],
              multiproc_launches=sum(map(sum, mp_launches.values())),
-             multiproc_rank_launches=mp_launches, **d_k1, **g_k1,
+             multiproc_rank_launches=mp_launches, **d_k1,
              dist_scale_launches=ds_k1),
         dict(entry("K2", "fused_compare_dual_fetch", KERNEL_SOURCE,
                    K2_REPLACES, launches["K2"], errs, med, bounds["K2"]),

@@ -50,7 +50,7 @@ import torch
 
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
-from ..overlap.device import (_M32, _SIGN64, _Scatter, _window_codes,
+from ..overlap.device import (_M32, _SIGN64, _window_codes,
                               candidate_checks, candidate_checks_rows,
                               flip_keys, window_offsets)
 from ..overlap.verify import as_words, make_packed_all
@@ -108,6 +108,24 @@ def shard_windows(woff: np.ndarray, packed, a: int, b: int, lanes: int,
     qj = torch.where(real, qj, -1).to(torch.int32)
     code = torch.where(real, code, _PAD_FLIPPED)
     return qread, qj, code, code_owner(code, n_shards)
+
+
+class _Scatter:
+    """Scatter of kept rows to their rank in a zeroed (out_cap,) vector,
+    dropping ranks >= out_cap (XLA's mode="drop").  Dropped rows land in
+    one extra slot that is cut off, so no count is read back to the
+    host."""
+
+    def __init__(self, keep, out_cap):
+        pos = torch.cumsum(keep, 0) - 1
+        self.idx = torch.where(keep & (pos < out_cap), pos, out_cap)
+        self.out_cap = out_cap
+
+    def __call__(self, vals, dtype=torch.int64):
+        out = torch.zeros(self.out_cap + 1, dtype=dtype,
+                          device=self.idx.device)
+        out.scatter_(0, self.idx, vals.to(dtype))
+        return out[:self.out_cap]
 
 
 def compact(qread, qj, out):

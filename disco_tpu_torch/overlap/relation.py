@@ -287,14 +287,6 @@ def relation_order(w, fidx2, typ) -> np.ndarray:
     return np.argsort(key, kind="stable")
 
 
-def decode_wire64(rows: np.ndarray):
-    """(wi, r2, orient, typ, flags) of 8-byte wire rows, (2, n) int32 (row 0
-    wi | orient << 21 | typ << 23 | flags << 24, row 1 r2:
-    overlap/device.py::device_overlap_dense); r2 is exact up to 2^31 - 1."""
-    w0, r2 = rows
-    return w0 & 0x1FFFFF, r2, (w0 >> 21) & 3, (w0 >> 23) & 1, (w0 >> 24) & 3
-
-
 class _RowSegments:
     """The relation's rows kept on the device until the end: each column in
     segments of `cap` rows, which the chunk steps fill in chunk order at a

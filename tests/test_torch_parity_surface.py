@@ -20,8 +20,34 @@ _PAD = "pads the pairs to whole Pallas tiles: the CUDA kernels take any P"
 _LOADER = "builds or loads disco_tpu's libraries in its package: the " \
           "port's loader is native.__init__._lib over kernels.py's build " \
           "directory"
+_GRID = "the hit-cap grid engine: no path of either package's CLI runs " \
+        "it; the port's one step is device_overlap_rows"
+_WIRE = "disco_tpu's wire rows: the port's relation keeps its rows as " \
+        "columns on the card (device_overlap_rows, dense_row_chunks)"
 
 DIFFERENCES = {
+    "overlap/device.py": {
+        "DeviceOverlapResult": _GRID,
+        "DeviceCompactResult": _GRID,
+        "device_overlap": _GRID,
+        "device_overlap_compact": _GRID,
+        "device_overlap_packed": _GRID,
+        "DeviceOverlapEngine.run": _GRID,
+        "DeviceOverlapEngine.run_chunked": _GRID,
+        "DeviceOverlapEngine.run_compact": _GRID,
+        "DeviceOverlapEngine.run_packed": _GRID,
+        "DeviceOverlapEngine.run_packed_chunked": _GRID,
+        "DeviceOverlapEngine.window_starts": "the grid's window ids of the "
+                                             "whole set on the host: the "
+                                             "port makes each chunk's on "
+                                             "the card (window_starts_at)",
+        "device_overlap_dense": _WIRE,
+        "device_overlap_dense32": _WIRE,
+        "DeviceOverlapEngine.run_dense": _WIRE,
+        "DeviceOverlapEngine.run_dense32": _WIRE,
+        "DeviceOverlapEngine.run_dense_chunked": _WIRE,
+        "DeviceOverlapEngine.run_dense32_chunked": _WIRE,
+    },
     "overlap/fused_kernel.py": {
         "_dual_kernel": _PALLAS,
         "_fused_kernel": _PALLAS,

@@ -1,9 +1,9 @@
 """The device relation at the size its users run (disco_tpu_torch.overlap):
 the engine's chunk windows at global window offsets past 2^31, the
-relation order against np.lexsort, the 8-byte wire and the relation's r2
-column past 2^23 reads, the host's work (codes, windows and sorts for
-re-run chunks only) and the streamed relation's host memory, against
-disco_tpu and closed formulas.
+relation order against np.lexsort, the relation's r2 column past 2^23
+reads, the host's work (codes, windows and sorts for re-run chunks only)
+and the streamed relation's host memory, against disco_tpu and closed
+formulas.
 Tolerance: exact — every output is an integer or boolean array."""
 import tracemalloc
 
@@ -14,7 +14,6 @@ import torch
 from conftest import GOLDEN
 from disco_tpu.index.table import FingerprintTable
 from disco_tpu.io.readstore import ReadStore
-from disco_tpu.overlap import device as ref_device
 from disco_tpu.overlap.relation import compute_relation as ref_relation
 from disco_tpu.overlap.relation import window_codes as ref_window_codes
 from disco_tpu_torch.convert import state_from_reference
@@ -111,34 +110,6 @@ def test_chunk_windows_cover_every_window_in_order(chunk):
         port_device.window_offsets(np.array([K + 5, K], np.int32), K)
 
 
-@pytest.mark.parametrize("rbits", [None, 24])
-def test_dense_window_chunks_match_reference_engine(mini, rbits):
-    """The engine's own chunk loop (chunks of 1000 windows, which do not
-    divide mini's) yields each chunk's (read, j) and the wire arrays
-    disco_tpu's engine yields over its precomputed window starts."""
-    store, table = mini
-    qread, qj, _ = ref_window_codes(store, table.k)
-    starts = qread.astype(np.int64) * store.max_len + qj
-    ref_eng = ref_device.DeviceOverlapEngine(store, table)
-    eng = port_device.DeviceOverlapEngine(
-        *state_from_reference(store, table), device="cpu")
-    chunk = 1000
-    want = (ref_eng.run_dense_chunked(starts, chunk=chunk) if rbits is None
-            else ref_eng.run_dense32_chunked(starts, chunk=chunk,
-                                             rbits=rbits))
-    s = 0
-    for (n_real, *w), ((read, j), *g) in zip(
-            want, eng.dense_window_chunks(chunk, rbits=rbits), strict=True):
-        assert len(read) == n_real
-        np.testing.assert_array_equal(read, qread[s:s + n_real])
-        np.testing.assert_array_equal(j, qj[s:s + n_real])
-        for a, b in zip(w, g, strict=True):
-            np.testing.assert_array_equal(np.asarray(b).astype(np.int64),
-                                          np.asarray(a).astype(np.int64))
-        s += n_real
-    assert s == len(qread) and eng.stats["chunks"] == -(-s // chunk)
-
-
 # ---- the relation order ---------------------------------------------------
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_relation_order_is_lexsort(seed):
@@ -173,25 +144,7 @@ def test_relation_order_is_lexsort(seed):
         np.arange(len(in_order)))
 
 
-# ---- the 8-byte wire and the r2 column -----------------------------------
-def test_wire64_decodes_read_ids_past_2_23():
-    """Synthetic 8-byte wire rows (row 0 wi | orient << 21 | typ << 23 |
-    flags << 24, row 1 r2) with read ids up to 2^28 - 1 decode exactly."""
-    rng = np.random.default_rng(3)
-    n = 50_000
-    wi = np.sort(rng.integers(0, 1 << 21, n))
-    r2 = rng.integers(0, 1 << 28, n)
-    r2[:4] = [(1 << 23) - 1, 1 << 23, (1 << 23) + 1, (1 << 28) - 1]
-    orient = rng.integers(0, 4, n)
-    typ = rng.integers(0, 2, n)
-    flags = rng.integers(1, 4, n)
-    rows = np.stack([wi | (orient << 21) | (typ << 23) | (flags << 24),
-                     r2]).astype(np.int32)
-    for got, want in zip(port.decode_wire64(rows),
-                         (wi, r2, orient, typ, flags), strict=True):
-        np.testing.assert_array_equal(got.astype(np.int64), want)
-
-
+# ---- the r2 column past 2^23 reads -----------------------------------------
 @pytest.mark.parametrize("top", [(1 << 23) - 1, 1 << 23, N_BIG,
                                  (1 << 28) - 1])
 def test_read_ids_past_2_23_reach_the_r2_column_exact(mini, monkeypatch,
