@@ -17,6 +17,7 @@ import numpy as np
 
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
+from ..overlap import relation
 from ..overlap.relation import BACKEND_ENV, compute_relation, default_backend
 from ..utils.logging import clock, span
 from . import replay
@@ -70,7 +71,9 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
     card), "native" (C++ host kernel) or "xla" (exact host expansion);
     None picks `default_backend()`.  An explicit backend (argument or
     DISCO_TPU_TORCH_BACKEND) always runs; an auto-selected one gives way to
-    the native two-pass protocol below 2^20 windows.
+    the native two-pass protocol below 2^20 windows.  The one-pass device
+    backend builds the fingerprint table on its device too
+    (`FingerprintTable.build(..., device=...)`: the same arrays).
 
     The native backend runs the bounded-memory TWO-PASS protocol (the
     reference's own structure: markContainedReads first, then edge
@@ -89,8 +92,6 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
             store = ReadStore.from_files(paired_files, single_files,
                                          min_overlap,
                                          id_map_path=prefix + "_ReadIDMap.txt")
-    with clock("insertDataset"):
-        table = FingerprintTable.build(store, min_overlap - 1)
 
     backend_forced = backend is not None or bool(os.environ.get(BACKEND_ENV))
     backend = backend or default_backend()
@@ -102,6 +103,14 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
                        for p in (*paired_files, *single_files)) / (1 << 30)
         if max_mem_gb >= 6 * fasta_gb + 2:
             two_pass = False
+    # the device relation's table is built on its device
+    table_device = None
+    if backend == "device" and not two_pass:
+        table_device = (device if device is not None
+                        else relation._default_device())
+    with clock("insertDataset"):
+        table = FingerprintTable.build(store, min_overlap - 1,
+                                       device=table_device)
 
     rel = None
     if not two_pass:

@@ -330,7 +330,8 @@ def run_buildg_sharded(paired_files: Sequence[str],
         store = ReadStore.from_files(paired_files, single_files, min_overlap,
                                      id_map_path=prefix + "_ReadIDMap.txt")
     with clock("insertDataset"):
-        table = FingerprintTable.build(store, min_overlap - 1)
+        table = FingerprintTable.build(store, min_overlap - 1,
+                                       device=mesh.devices[0])
 
     cont_path = prefix + "_0_containedReads.txt"
     superread_init = None

@@ -90,7 +90,8 @@ def run_buildg_multiproc(paired_files: Sequence[str],
             paired_files, single_files, min_overlap,
             id_map_path=(prefix + "_ReadIDMap.txt" if rank == 0 else None))
     with clock("insertDataset"):
-        table = FingerprintTable.build(store, min_overlap - 1)
+        table = FingerprintTable.build(store, min_overlap - 1,
+                                       device=mesh.devices[0])
     with clock("overlapRelation"):
         rel = sharded_relation_multiproc(store, table, mesh,
                                          dist_mem=dist_mem)

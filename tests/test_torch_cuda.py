@@ -2,6 +2,7 @@
 rows route and that route's designs, K2, K3,
 K4, K5, K6, the one-thread-a-pair controls of K3, K4 and K6 and the
 unpipelined control of K5; overlap/pallas_kernel.py: K7;
+index/table.py: the table's torch route;
 tools/exp_fetch_variants.py: T1 and its unpipelined control, T2;
 tools/exp_mxu_fetch.py: T3 and its unpipelined control) against their plain
 versions, on a CUDA card; the main path's relation on the card against
@@ -1139,6 +1140,42 @@ def test_device_relation_on_the_card(cuda_device, cand_factor):
     meta = meta.cpu().numpy()
     torch.cuda.synchronize()
     assert meta[0] == len(got) and meta[2] == 0 and seg == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_name", ["mixed", "random_200k"])
+def test_table_on_the_card_equals_numpy_route(cuda_device, store_name):
+    """The fingerprint table built on the card (index/table.py's torch
+    route) equals the numpy route's, array for array and dtype for dtype:
+    on the golden mixed set, and on 200,000 reads of 250 bp from a 2 Mb
+    genome under a permuted file index (shared end k-mers abound at 30x);
+    the job counts one card build and the table's entries."""
+    from disco_tpu_torch.index.table import FingerprintTable
+    from disco_tpu_torch.utils.logging import RECORDER
+
+    if store_name == "mixed":
+        d = MINI.parent / "mixed"
+        store = ReadStore.from_files(
+            [str(d / "p1.fasta"), str(d / "p2.fasta")],
+            [str(d / "se.fasta")], 30)
+    else:
+        rng = np.random.default_rng(23)
+        genome = "".join(rng.choice(list("ACGT"), 2_000_000))
+        n = 200_000
+        store = ReadStore.from_sequences(
+            [genome[s:s + READ_LEN]
+             for s in rng.integers(0, 2_000_000 - READ_LEN, n)],
+            file_index=rng.permutation(n).astype(np.int64) + 1)
+    want = FingerprintTable.build(store, 29)
+    with RECORDER.job():
+        got = FingerprintTable.build(store, 29, device=cuda_device)
+    counters = RECORDER.jobs()[-1]["counters"]
+    assert counters == {"index.card_builds": 1,
+                        "index.entries": len(want.keys)}
+    for f in ("keys", "read", "orient", "typ"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
 
 
 # ---------------------------------------------------------------------------

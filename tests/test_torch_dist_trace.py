@@ -95,6 +95,12 @@ def test_sharded_loop_opens_dist_spans(tmp_path, monkeypatch, mode, caps):
         assert names.count("dist." + stage) == want, stage
     assert names.count("dist.build") == names.count("dist.join") == 1
     assert not [n for n in names if n.startswith("relation.")]
+    # the table is built on the mesh's device: its spans once each, in
+    # insertDataset
+    (insert,) = [s for s in spans if s["name"] == "insertDataset"]
+    for name in ("index.keys", "index.order", "index.pull"):
+        (sp,) = [s for s in spans if s["name"] == name]
+        assert sp["parent"] == insert["id"], name
     (rel,) = [s for s in spans if s["name"] == "overlapRelation"]
     for s in spans:
         if s["name"].startswith("dist."):

@@ -30,6 +30,8 @@ SORTED_SPANS = ("relation.decode", "relation.order")
 ONCE_SPANS = ("relation.upload", "relation.pull", "relation.join")
 # the replay's steps, once a job each
 REPLAY_SPANS = ("replay.groups", "replay.traverse", "replay.format")
+# the table's steps on the relation's device, once a job each
+INDEX_SPANS = ("index.keys", "index.order", "index.pull")
 
 
 def _on_cpu(mp):
@@ -247,6 +249,24 @@ def test_replay_records_its_spans_and_counters(mini_device):
     par, _, _ = walk.text(store.file_index, store.lengths)
     assert par == (out / "g_0_parGraph.txt").read_bytes()
     assert walk.lines == par.count(b"\n")
+
+
+def test_table_records_its_spans_and_counters(mini_device):
+    """index.keys, .order and .pull once each, children of insertDataset,
+    their seconds within 10% of its; index.entries the table's size, and
+    no card build on the CPU."""
+    job, spans, _ = mini_device
+    (insert,) = [s for s in spans if s["name"] == "insertDataset"]
+    for name in INDEX_SPANS:
+        (sp,) = [s for s in spans if s["name"] == name]
+        assert sp["parent"] == insert["id"], name
+    parts = sum(job["totals"][name][1] for name in INDEX_SPANS)
+    whole = job["totals"]["insertDataset"][1]
+    assert abs(parts - whole) <= 0.1 * whole
+    store = ReadStore.from_files([str(MINI / "reads.fasta")], [], 30)
+    n = len(FingerprintTable.build(store, 29).keys)
+    assert job["counters"]["index.entries"] == n > 0
+    assert "index.card_builds" not in job["counters"]
 
 
 def test_slots_count_every_chunk_and_fallback_is_a_span(tmp_path):
