@@ -13,13 +13,13 @@ fullsimplify and parsimplify executables and its assemblyStats.py.
 Usage:
   python -m disco_tpu_torch assemble -inP reads.fasta -d out -o prefix \
       -p disco.cfg [-p2 ...] [-p3 ...] [-m 30] [-obg|-osg] [-resimp] \
-      [-backend device|native|xla] [-n N] [-rma] \
+      [-backend device|native|xla] [-n N [-procs]] [-rma] \
       [-ecc -bbmap BBTOOLS_DIR [-ecc-t T] [-ecc-m GB]]
   python -m disco_tpu_torch preprocess -inP reads.fasta -d out \
       -bbmap BBTOOLS_DIR [-n T] [-m GB] [--keep]
   python -m disco_tpu_torch buildg -pe reads.fasta -f out/prefix \
       [-se single.fasta] [-p disco.cfg | -m-ovl 30] [-m 8] [-w N] \
-      [-backend device|native|xla] [-n N] [-rma]
+      [-backend device|native|xla] [-n N [-procs]] [-rma]
   python -m disco_tpu_torch simplify -fpi reads.fasta -e edges -crd crd \
       -o prefix -p disco.cfg [-p2 ...] [-p3 ...]
   python -m disco_tpu_torch parsimplify edgeFile outFile minOvl [threads]
@@ -60,11 +60,27 @@ def _mesh(n: int):
     return make_mesh(n)
 
 
+def _ranks(n: int):
+    """n ranks for -n N -procs (runDisco-MPI.sh:214's `mpirun -np N`): this
+    process rank 0 on cuda:0, ranks 1 .. n-1 processes on cuda:1 ..,
+    over NCCL (dist/multiproc.py::Ranks).  With fewer than n cards this
+    raises: there is no fallback to ranks sharing a card, or to the CPU."""
+    from .dist.multiproc import Ranks
+    return Ranks.on_cards(n)
+
+
 def _build_target(args):
     """(mesh, backend) of buildG: -n N (N > 1) runs the distributed build
-    over a mesh of N shards (dist-mem with -rma).  -rma alone runs the
-    single-device buildG, as disco_tpu does, on the card: so -n and -rma
-    both raise without one, before anything is written."""
+    over a mesh of N shards (dist-mem with -rma) in this process, or with
+    -procs over N processes, a rank a card (`_ranks`; `mesh` is then a
+    `Ranks`).  -rma alone runs the single-device buildG, as disco_tpu
+    does, on the card: so -n, -procs and -rma raise without one, before
+    anything is written."""
+    if args.procs:
+        if not (args.n and args.n > 1):
+            raise ValueError("-procs runs the -n N ranks as processes: "
+                             "give -n N, N > 1")
+        return _ranks(args.n), args.backend
     if args.n and args.n > 1:
         return _mesh(args.n), args.backend
     if args.rma:
@@ -93,7 +109,8 @@ def cmd_assemble(args) -> int:
     """reads -> graph -> contigs and scaffolds.  -backend selects buildG's
     overlap engine (default `default_backend()`: the device when a card is
     present); -n N runs buildG over a mesh of N shards, dist-mem with
-    -rma (`_build_target`); -ecc assembles the BBTools-corrected reads of
+    -rma, as N processes with -procs (`_build_target`; a rank that fails
+    returns 1); -ecc assembles the BBTools-corrected reads of
     `preprocess`, written under <d>/ecc."""
     mesh, backend = _build_target(args)
     from .buildg.pipeline import run_buildg
@@ -137,7 +154,19 @@ def cmd_assemble(args) -> int:
 
     # buildG phase: interleaved + separated pairs are "paired" inputs,
     # singles are single (reference: runDisco.sh:195-257)
-    if not args.osg and mesh is not None:
+    if not args.osg and args.procs:
+        # the distributed graph construction as one process a rank
+        # (buildG-MPI under mpirun -np N, buildG-MPIRMA with -rma)
+        from .dist.multiproc import RankFailed
+        try:
+            mesh.buildg(inter_files + pair_files, single_files, graph_prefix,
+                        min_overlap=min_ovl,
+                        write_par_graph_size=args.write_par_graph_size,
+                        dist_mem=args.rma)
+        except RankFailed as e:
+            print(f"assemble -procs: {e}", file=sys.stderr)
+            return 1
+    elif not args.osg and mesh is not None:
         # distributed graph construction over the mesh (buildG-MPI, or
         # buildG-MPIRMA with -rma)
         from .dist.builder import run_buildg_sharded
@@ -191,7 +220,8 @@ def cmd_buildg(args) -> int:
     -m memory budget (sets the parGraph chunk size exactly like the
     reference), -w explicit chunk override; -t enters the -m rule only.
     -n N runs the overlap phase over a mesh of N shards, dist-mem with
-    -rma (`_build_target`)."""
+    -rma, as N processes with -procs (`_build_target`); a rank that fails
+    returns 1."""
     mesh, backend = _build_target(args)
     from .buildg.pipeline import run_buildg
 
@@ -203,7 +233,15 @@ def cmd_buildg(args) -> int:
     min_ovl = _cfg_min_overlap(args.p) if args.p else args.m_ovl
     wsize = args.w or (_par_graph_size(args.m, args.t or 1)
                        if args.m else 1000)
-    if mesh is not None:
+    if args.procs:
+        from .dist.multiproc import RankFailed
+        try:
+            mesh.buildg(paired, single, args.f, min_overlap=min_ovl,
+                        write_par_graph_size=wsize, dist_mem=args.rma)
+        except RankFailed as e:
+            print(f"buildg -procs: {e}", file=sys.stderr)
+            return 1
+    elif mesh is not None:
         from .dist.builder import run_buildg_sharded
         run_buildg_sharded(paired, single, args.f, mesh, min_overlap=min_ovl,
                            write_par_graph_size=wsize, dist_mem=args.rma)
@@ -315,6 +353,10 @@ def main(argv=None) -> int:
                         "packed read payload partitioned over the shards, "
                         "O(N/n) a shard (default replicates it, buildG-MPI);"
                         " alone, the single-device buildG on the card")
+    a.add_argument("-procs", "--procs", action="store_true",
+                   help="with -n N, buildG as N processes, a rank a CUDA "
+                        "card over NCCL (runDisco-MPI's mpirun -np N); "
+                        "this process is rank 0; needs N cards")
     a.add_argument("-ecc", action="store_true",
                    help="BBTools preprocessing before assembly "
                         "(runAssembly.sh equivalent; needs -bbmap)")
@@ -371,6 +413,10 @@ def main(argv=None) -> int:
                    help="dist-mem build (buildG-MPIRMA): the packed read "
                         "payload partitioned over the -n shards; alone, the "
                         "single-device buildG on the card")
+    b.add_argument("-procs", "--procs", action="store_true",
+                   help="with -n N, N processes, a rank a CUDA card over "
+                        "NCCL (runDisco-MPI's mpirun -np N); this process "
+                        "is rank 0; needs N cards")
     b.set_defaults(fn=cmd_buildg)
 
     fsim = sub.add_parser("simplify",

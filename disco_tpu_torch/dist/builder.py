@@ -25,13 +25,17 @@ slice, and `_pull` gathers every shard's row count and overflow, then
 every shard's kept rows padded to the largest count, to every rank
 (`mesh.gather_host`), so every rank holds the same rows and takes the same
 decision to re-run a chunk: ranks whose control flow diverged would wait
-on different collectives.  disco_tpu's multiproc raises on an overflow
-instead; here every rank re-runs the chunk exactly (`_chunk_fallback`) and
-gets the same rows."""
+on different collectives.  `run_buildg_sharded` is every rank's front end
+(`buildg -n N -procs`, `python -m disco_tpu_torch.dist.multiproc`): the
+ranks take rank 0's checkpoint state, rank 0 alone writes the files and
+runs the graph replay, and a barrier ends the job.  disco_tpu's multiproc
+raises on an overflow instead; here every rank re-runs the chunk exactly
+(`_chunk_fallback`) and gets the same rows."""
 import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..buildg import replay
 from ..buildg.pipeline import load_contained_reads, read_checkpoint_info
@@ -42,7 +46,7 @@ from ..overlap.relation import (_COLUMNS, OverlapRelation, _xla_rows,
                                 relation_order, window_codes_at)
 from ..overlap.verify import make_packed_all
 from ..utils.logging import RECORDER, clock, count, span
-from .mesh import Mesh, gather_host, make_mesh
+from .mesh import Mesh, barrier, gather_host, make_mesh
 from .overlap_shard import DistMemOverlapEngine, ShardedOverlapEngine, compact
 
 # the host's stages of the chunk loop, each the span "dist.<stage>"
@@ -54,7 +58,8 @@ from .overlap_shard import DistMemOverlapEngine, ShardedOverlapEngine, compact
 # loop, the spans dist.build (the chunk plan and the engine, its table
 # shards and payload put on the devices) and dist.join (the columns
 # joined).  The counters: dist.chunks, dist.fallback_chunks, dist.rows
-# (rows `_pull` brought to the host), and the exchanges' bytes
+# (rows `_pull` brought to the host), dist.gather_bytes (what `_pull`'s two
+# gathers give the local shards, from shapes) and the exchanges' bytes
 # (overlap_shard.py)
 HOST_STAGES = ("marked", "windows", "step", "pull", "order", "replay",
                "fallback")
@@ -112,7 +117,12 @@ def _pull(mesh: Mesh, rows, metas):
     host, (R, 4) int32 in shard, window, slot order, or None when a shard
     overflowed a cap.  One count read for every shard (across processes
     one `all_gather`), then each shard's rows padded to the largest count,
-    so that every rank holds the same rows, counted as dist.rows."""
+    so that every rank holds the same rows, counted as dist.rows.  Each
+    local shard receives every shard's block of both gathers: their bytes,
+    from shapes, are counted as dist.gather_bytes."""
+    given = len(metas) * mesh.size
+    count("dist.gather_bytes",
+          given * metas[0].numel() * metas[0].element_size())
     meta = gather_host(mesh, metas).reshape(mesh.size, 2)
     if meta[:, 1].sum() != 0:
         return None
@@ -120,6 +130,7 @@ def _pull(mesh: Mesh, rows, metas):
     count("dist.rows", int(meta[:, 0].sum()))
     if top == 0:
         return np.zeros((0, 4), np.int32)
+    count("dist.gather_bytes", given * top * 4 * rows[0].element_size())
     got = gather_host(mesh, [r[:top] for r in rows]).reshape(mesh.size, top,
                                                              4)
     return np.concatenate([got[d, :c] for d, c in enumerate(meta[:, 0])])
@@ -306,6 +317,18 @@ def sharded_relation_pruned(store: ReadStore, table: FingerprintTable,
                      hit_cap=hit_cap, profile=profile)
 
 
+def _agree(mesh: Mesh, flags):
+    """Rank 0's `flags` (booleans) on every rank of a mesh that spans
+    processes (one `all_gather`): ranks that took different checkpoint
+    decisions would wait on different collectives, or prune rows that
+    rank 0's replay needs."""
+    if mesh.group is None:
+        return flags
+    mine = torch.tensor([int(f) for f in flags], device=mesh.devices[0])
+    got = gather_host(mesh, [mine] * len(mesh.devices))
+    return tuple(bool(f) for f in got[:len(flags)])
+
+
 def run_buildg_sharded(paired_files: Sequence[str],
                        single_files: Sequence[str], prefix: str,
                        mesh: Union[Mesh, int], min_overlap: int = 30,
@@ -320,39 +343,61 @@ def run_buildg_sharded(paired_files: Sequence[str],
     cards (raising without one) unless the caller names a device ("cpu" in
     the tests).  dist_mem selects the partitioned-payload engine
     (buildG-MPIRMA, the CLI's -rma).  Returns (store, relation, superread),
-    or Nones when the checkpoint says the graph is complete."""
+    or Nones when the checkpoint says the graph is complete.
+
+    Over a mesh that spans processes every rank calls this with the same
+    inputs: every rank takes rank 0's checkpoint state, runs the relation
+    and its containment replay (the marks prune every rank's candidates),
+    and only rank 0, the holder of shard 0, writes the files and runs the
+    graph replay; a barrier ends the call."""
     if not isinstance(mesh, Mesh):
         mesh = make_mesh(mesh, device)
+    writer = mesh.shards[0] == 0
+    cont_path = prefix + "_0_containedReads.txt"
     ccr_done, gc_done = read_checkpoint_info(prefix)
+    resume, gc_done = _agree(mesh, (ccr_done and os.path.exists(cont_path),
+                                    gc_done))
     if gc_done:
         return None, None, None
     with clock("readDataset"):
-        store = ReadStore.from_files(paired_files, single_files, min_overlap,
-                                     id_map_path=prefix + "_ReadIDMap.txt")
+        store = ReadStore.from_files(
+            paired_files, single_files, min_overlap,
+            id_map_path=prefix + "_ReadIDMap.txt" if writer else None)
     with clock("insertDataset"):
         table = FingerprintTable.build(store, min_overlap - 1,
                                        device=mesh.devices[0])
 
-    cont_path = prefix + "_0_containedReads.txt"
     superread_init = None
-    if ccr_done and os.path.exists(cont_path):
+    if resume and os.path.exists(cont_path):
         # resume: seed the in-loop pruning mask with the completed
         # contained-read phase (the reference rebroadcasts the bitmap on
-        # restart, src/BuildGraphMPI/src/OverlapGraph.cpp:448-509)
+        # restart, src/BuildGraphMPI/src/OverlapGraph.cpp:448-509); a rank
+        # other than 0 that cannot read it marks a subset of rank 0's
+        # reads and prunes less, which is safe
         superread_init = load_contained_reads(cont_path, store)
     with clock("overlapRelation"):
         rel, superread, cont_lines = sharded_relation_pruned(
             store, table, mesh, dist_mem=dist_mem, budget=budget,
             route_cap=route_cap, superread_init=superread_init, stats=stats)
-    if superread_init is None:
-        with open(cont_path, "w") as f:
+    if writer:
+        _write_graph(prefix, store, rel, superread, cont_lines,
+                     write_par_graph_size, resumed=superread_init is not None)
+    barrier(mesh)
+    return store, rel, superread
+
+
+def _write_graph(prefix, store, rel, superread, cont_lines,
+                 write_par_graph_size, resumed):
+    """The files of a sharded build: the contained reads (unless resumed
+    past them), then the graph replay with run_buildg's incremental
+    parGraph restart (reference: OverlapGraph.cpp:123-211)."""
+    if not resumed:
+        with open(prefix + "_0_containedReads.txt", "w") as f:
             for ln in cont_lines:
                 f.write(ln + "\n")
         with open(prefix + "_CheckpointInfo.txt", "w") as f:
             f.write("CCR=Complete\n")
 
-    # incremental parGraph restart, run_buildg's protocol
-    # (reference: OverlapGraph.cpp:123-211)
     par_path = prefix + "_0_parGraph.txt"
     sr_path = prefix + "_0_startRead.txt"
     start_read = 1
@@ -372,4 +417,3 @@ def run_buildg_sharded(paired_files: Sequence[str],
         f.write(start_blob)
     with open(prefix + "_CheckpointInfo.txt", "a") as f:
         f.write("GC=Complete\n")
-    return store, rel, superread

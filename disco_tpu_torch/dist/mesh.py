@@ -158,6 +158,13 @@ def all_gather(mesh: Mesh, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [out.view(xs[0].dtype)] * len(xs)
 
 
+def barrier(mesh: Mesh) -> None:
+    """Every process of a mesh that spans processes waits for the others;
+    nothing in one process."""
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
+
+
 def gather_host(mesh: Mesh, xs: Sequence[torch.Tensor]) -> np.ndarray:
     """Every shard's tensor, in global shard order, concatenated on dim 0
     on the host (disco_tpu's global array as numpy): across processes

@@ -81,7 +81,7 @@ def counted(name, key):
 counted("all_to_all_single", "all_to_all")
 counted("all_gather_into_tensor", "all_gather")
 real_gather_host, real_relation = (builder.gather_host,
-                                   multiproc.sharded_relation_multiproc)
+                                   builder.sharded_relation_pruned)
 
 
 def gather_host(mesh, xs):
@@ -91,13 +91,13 @@ def gather_host(mesh, xs):
 
 
 def relation(*a, **kw):
-    rel = real_relation(*a, **kw)
-    rec["stats"] = rel.stats
-    return rel
+    out = real_relation(*a, **kw)
+    rec["stats"] = out[0].stats
+    return out
 
 
 builder.gather_host = gather_host
-multiproc.sharded_relation_multiproc = relation
+builder.sharded_relation_pruned = relation
 t0 = time.perf_counter()
 rc = multiproc.main(sys.argv[1:])
 torch.cuda.synchronize()

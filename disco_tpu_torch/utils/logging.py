@@ -21,7 +21,12 @@ the wall clock.  The recorder keeps every span of the last KEEP_SPANS
 jobs (the process's job its last PROCESS_SPANS spans), and for the last
 KEEP_JOBS jobs their totals by name (count, seconds, self seconds: the
 span less its children) and counters.  It never synchronises with or
-reads from the card, and enters nothing into a profiler."""
+reads from the card, and enters nothing into a profiler.
+
+A job that spans processes (`buildg -n N -procs`, dist/multiproc.py)
+takes its peers' records in once, `join_ranks`: its view then holds
+`ranks`, each rank's totals and counters in rank order, and its counters
+are their sum; its totals stay this process's."""
 import collections
 import ctypes
 import itertools
@@ -82,7 +87,7 @@ class _Job:
     None once the job is past the recorder's span window; `totals` maps a
     name to [count, ns, self ns]."""
     __slots__ = ("id", "name", "t0", "t1", "anchor", "spans", "totals",
-                 "counters")
+                 "counters", "ranks")
 
     def __init__(self, id_, name, spans):
         self.id, self.name = id_, name
@@ -90,13 +95,27 @@ class _Job:
         self.anchor = (time.time_ns(), time.perf_counter_ns())
         self.t0, self.t1 = self.anchor[1], None
         self.spans, self.totals, self.counters = spans, {}, {}
+        self.ranks = None
 
-    def view(self) -> dict:
-        return {"id": self.id, "name": self.name, "t0": self.t0,
-                "t1": self.t1, "anchor": self.anchor,
-                "totals": {n: (c, ns / 1e9, s / 1e9)
+    def own(self) -> dict:
+        """This process's totals and counters."""
+        return {"totals": {n: (c, ns / 1e9, s / 1e9)
                            for n, (c, ns, s) in self.totals.items()},
                 "counters": dict(self.counters)}
+
+    def view(self) -> dict:
+        out = {"id": self.id, "name": self.name, "t0": self.t0,
+               "t1": self.t1, "anchor": self.anchor, **self.own()}
+        if self.ranks is not None:
+            rank, views = self.ranks
+            ranks = [dict(v, rank=r) for r, v in enumerate(views)]
+            ranks[rank].update(self.own())
+            counters = {}
+            for v in ranks:
+                for k, x in v["counters"].items():
+                    counters[k] = counters.get(k, 0) + x
+            out.update(counters=counters, ranks=ranks)
+        return out
 
 
 class _Span:
@@ -221,6 +240,19 @@ class Recorder:
             job.t1 = t1
             self._open = None
 
+    def snapshot(self) -> dict:
+        """{totals, counters} of the current job so far, this process's
+        alone: what a rank sends to rank 0."""
+        with self._lock:
+            return (self._open or self._process).own()
+
+    def join_ranks(self, views, rank: int = 0) -> None:
+        """The current job spans processes: `views`, every rank's
+        `snapshot` in rank order (each may carry more keys), this one's at
+        `rank`, whose entry the job's live record replaces."""
+        with self._lock:
+            (self._open or self._process).ranks = (rank, list(views))
+
     def current_job(self) -> int:
         """The id of the open job, 0 outside any."""
         return (self._open or self._process).id
@@ -228,7 +260,9 @@ class Recorder:
     def jobs(self) -> list:
         """The jobs kept, oldest first, each {id, name, t0, t1 (ns on
         perf_counter; t1 None while open), anchor (wall ns, perf ns),
-        totals {name: (count, seconds, self seconds)}, counters}."""
+        totals {name: (count, seconds, self seconds)}, counters}; a job
+        that spans processes also {ranks: [{rank, totals, counters, ...}]},
+        its counters the ranks' sum."""
         with self._lock:
             return [j.view() for j in self._jobs.values()]
 

@@ -1179,8 +1179,40 @@ def test_table_on_the_card_equals_numpy_route(cuda_device, store_name):
 
 
 # ---------------------------------------------------------------------------
-# one process per rank (dist/multiproc.py): two ranks on the one card
+# one process per rank (dist/multiproc.py): two ranks on the one card; four
+# ranks on four cards over NCCL
 # ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_procs_over_nccl_match_one_process(cuda_device, tmp_path,
+                                           monkeypatch):
+    """`buildg -n 4 -rma -procs` on mini: this process rank 0 on cuda:0,
+    three rank processes on cuda:1-3, over NCCL; its files equal those of
+    `buildg -n 4 -rma` in one process and the reference's goldens, byte for
+    byte, and the job holds the four ranks' records.  Skips under four
+    cards."""
+    from disco_tpu_torch import cli
+    from disco_tpu_torch.utils.logging import RECORDER
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA cards, one a rank")
+    monkeypatch.chdir(MINI)        # _ReadIDMap.txt records the path as given
+    for name, extra in (("procs", ["-procs"]), ("one", [])):
+        assert cli.main(["buildg", "-pe", "reads.fasta", "-f",
+                         str(tmp_path / name), "-n", "4", "-rma",
+                         *extra]) == 0
+        if extra:
+            job = RECORDER.jobs()[-1]
+            assert [r["rank"] for r in job["ranks"]] == [0, 1, 2, 3]
+            assert all(r["counters"]["dist.route_bytes"] > 0
+                       for r in job["ranks"])
+    for suffix in ("_0_parGraph.txt", "_0_containedReads.txt",
+                   "_0_startRead.txt", "_CheckpointInfo.txt",
+                   "_ReadIDMap.txt"):
+        got = (tmp_path / f"procs{suffix}").read_bytes()
+        assert got == (tmp_path / f"one{suffix}").read_bytes(), suffix
+        assert got == (MINI / f"mini{suffix}").read_bytes(), suffix
+
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rma", [False, True], ids=["replicated", "rma"])
 def test_two_ranks_on_the_card_over_gloo(cuda_device, rma, tmp_path):
